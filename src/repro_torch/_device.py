@@ -1,0 +1,17 @@
+"""Device resolution shared by the port's entry points."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None
+                   ) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another. With no card a CUDA request raises; it never slides onto
+    the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev

@@ -1,0 +1,127 @@
+"""Batched placement gain oracle for the control plane: kernel C.
+
+GREEDY and LOCALSWAP (paper §3.2–3.3) are driven by the marginal gains
+
+    gain[o', j] = Σ_i Σ_r λ[i, r] · relu(cur[i, r] − C_a(x_r, y_o')
+                                          − H[i, j])
+
+over all candidate (object o', cache j) pairs, where ``cur`` is the
+current per-(ingress, object) serving cost C(r, A). Counterpart of
+``repro.kernels.knn.gains``:
+
+* :func:`gains_cuda` — kernel C (``kernels/csrc/gains.cu``), replacing
+  the Pallas TPU kernel ``repro/kernels/knn/gains.py::_gains_kernel``.
+  One block owns a candidate tile and walks every request tile in order,
+  its J sums per candidate in registers — no atomics, so each sum has
+  one fixed order. Bound on the card: the 2·R·O·D-flop fp32 C_a tile.
+  For CPU tensors it runs the plain version, :func:`_gains_tiles`.
+  ``gains_cuda.launches`` counts kernel launches.
+* :func:`placement_gains` — the public entry (sentinel mapping and the
+  (J, O) → (O, J) transpose), behind every GREEDY seed.
+* :func:`placement_gains_matrix` — plain torch over an explicit C_a
+  matrix, for instances that materialize it.
+
+Off-path +inf entries of H map to the finite ``H_SENTINEL`` (relu clamps
+them to zero gain; inf − inf would breed NaNs).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import LIBRARY, check, stream_ptr
+from repro_torch.kernels.knn.knn import _contig_f32, _metric_id
+from repro_torch.kernels.knn.ref import _dense_ca
+
+DEFAULT_BO = 256
+H_SENTINEL = 1.0e30      # finite stand-in for +inf (off-path) retrieval cost
+MAX_CACHES = 8           # J the kernel holds in registers
+
+
+def _fold_tile(ca_t: torch.Tensor, lam: torch.Tensor, cur: torch.Tensor,
+               h: torch.Tensor) -> torch.Tensor:
+    """(T, J) gains of one candidate tile given its (R, T) C_a columns."""
+    I, J = h.shape
+    cols = []
+    for j in range(J):
+        acc = torch.zeros((ca_t.shape[1],), dtype=torch.float32,
+                          device=ca_t.device)
+        for i in range(I):
+            m = (cur[i, :, None] - h[i, j] - ca_t).clamp_min(0.0)
+            acc = acc + lam[i, :] @ m
+        cols.append(acc)
+    return torch.stack(cols, dim=1)
+
+
+def _gains_tiles(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
+                 cur: torch.Tensor, hreq: torch.Tensor, metric: str,
+                 gamma: float, bo: int = DEFAULT_BO) -> torch.Tensor:
+    """Plain version of kernel C, blocked over candidate tiles so the
+    (R, O) distance matrix never materializes. Returns (O, J) f32."""
+    return torch.cat([
+        _fold_tile(_dense_ca(x, y[s:s + bo], metric, gamma), lam, cur, hreq)
+        for s in range(0, y.shape[0], bo)]) if y.shape[0] else \
+        torch.zeros((0, hreq.shape[1]), dtype=torch.float32, device=y.device)
+
+
+def gains_cuda(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
+               cur: torch.Tensor, hreq: torch.Tensor, metric: str = "l2",
+               gamma: float = 1.0) -> torch.Tensor:
+    """Kernel C: the (J, O) gain table. x (R, D), y (O, D); lam, cur
+    (I, R); hreq (I, J) finite (off-path already at ``H_SENTINEL``)."""
+    if not x.is_cuda:
+        return _gains_tiles(x.float(), y.float(), lam.float(), cur.float(),
+                            hreq.float(), metric, gamma).T
+    dev = x.device
+    xs, ys = _contig_f32(x, "x", dev), _contig_f32(y, "y", dev)
+    lm, cu = _contig_f32(lam, "lam", dev), _contig_f32(cur, "cur", dev)
+    h = _contig_f32(hreq, "hreq", dev)
+    R, D = xs.shape
+    O = ys.shape[0]
+    I, J = h.shape
+    if ys.shape[1] != D or lm.shape != (I, R) or cu.shape != (I, R):
+        raise ValueError(f"bad gain shapes: x {tuple(xs.shape)}, y "
+                         f"{tuple(ys.shape)}, lam {tuple(lm.shape)}, cur "
+                         f"{tuple(cu.shape)}, H {tuple(h.shape)}")
+    if not 1 <= J <= MAX_CACHES:
+        raise ValueError(f"kernel C holds 1..{MAX_CACHES} caches, got {J}")
+    out = torch.empty((J, O), dtype=torch.float32, device=dev)
+    if O == 0:
+        return out
+    check(LIBRARY.fn("simcache_gains")(
+        xs.data_ptr(), ys.data_ptr(), lm.data_ptr(), cu.data_ptr(),
+        h.data_ptr(), R, O, D, I, J, _metric_id(metric), float(gamma),
+        out.data_ptr(), stream_ptr(xs)), "simcache_gains")
+    gains_cuda.launches += 1
+    return out
+
+
+gains_cuda.launches = 0
+
+
+def _sentinel(hreq: torch.Tensor) -> torch.Tensor:
+    hreq = hreq.float()
+    return torch.where(torch.isfinite(hreq), hreq,
+                       torch.full_like(hreq, H_SENTINEL))
+
+
+def placement_gains(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
+                    cur: torch.Tensor, hreq: torch.Tensor,
+                    metric: str = "l2", gamma: float = 1.0) -> torch.Tensor:
+    """(O, J) marginal gains of every candidate approximizer (o', j).
+
+    x: (R, D) request-object coords; y: (O, D) candidate coords;
+    lam, cur: (I, R) per-(ingress, object) rates and current serving
+    costs; hreq: (I, J) ingress→cache retrieval costs (+inf allowed).
+    """
+    return gains_cuda(x, y, lam, cur, _sentinel(hreq), metric, gamma).T
+
+
+def placement_gains_matrix(ca: torch.Tensor, lam: torch.Tensor,
+                           cur: torch.Tensor, hreq: torch.Tensor,
+                           bo: int = DEFAULT_BO) -> torch.Tensor:
+    """Gain oracle over an explicit (R, O) C_a matrix; returns (O, J) f32
+    — the small-instance twin of :func:`placement_gains`."""
+    h = _sentinel(hreq)
+    lam, cur, ca = lam.float(), cur.float(), ca.float()
+    return torch.cat([_fold_tile(ca[:, s:s + bo], lam, cur, h)
+                      for s in range(0, ca.shape[1], bo)])

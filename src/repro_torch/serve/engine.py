@@ -1,0 +1,477 @@
+"""Serving engine with a similarity-cache front tier (the paper's system,
+deployed): batched requests are looked up in the cache network, and
+only misses run the model (the "repository").
+
+Counterpart of ``repro.serve.engine`` for this slice of the port:
+
+* the data plane — every served batch is one fused lookup (kernel A,
+  ``EngineConfig.fused``), or one KNN launch per level (kernel B) with
+  ``fused=False``; batches are padded to a power-of-two bucket
+  (``EngineConfig.bucket``) and the padding is masked out of every stat;
+* the control plane — ``refresh_placement`` re-solves the offline
+  problem on the observed demand window: by default the cascade (GREEDY
+  seeded by the gain oracle, kernel C, then a LOCALSWAP polish) on a
+  streaming ``DeviceInstance`` (``EngineConfig.device_placement``), or
+  the NumPy oracles with ``device_placement=False``;
+* the double buffer — ``request_refresh`` solves in a background thread
+  while the active :class:`PlacementBuffer` keeps serving, and
+  ``poll_refresh`` installs the result with one swap;
+* ``calibrate`` — times the repository prefill, sets the h costs in
+  milliseconds and re-installs the held allocation at those costs.
+
+The repository is the dense decoder of repro_torch.models, run in plain
+PyTorch. Flags of later slices raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import demand as demand_api
+from repro_torch.core.catalog import Catalog
+from repro_torch.core.objective import DeviceInstance, Instance
+from repro_torch.core.placement import (device_greedy,
+                                        device_greedy_then_localswap,
+                                        device_localswap, greedy,
+                                        greedy_then_localswap, localswap)
+from repro_torch.core.simcache import SimCacheNetwork
+from repro_torch.core.topology import CacheNetwork, tpu_hierarchy
+from repro_torch.models import model as model_api
+
+
+def bucket_size(n: int, lo: int = 8) -> int:
+    """Smallest power-of-two bucket ≥ max(n, lo) — the shape every
+    serving entry point sees under ``EngineConfig.bucket``."""
+    m = max(int(lo), 1)
+    while m < n:
+        m <<= 1
+    return m
+
+
+def _pad_rows(x, m: int):
+    """Pad axis 0 up to m rows by repeating row 0 (an always-valid
+    filler). Results for padding rows are discarded by the caller — per
+    row outputs are independent, so the first n rows are the unpadded
+    run's."""
+    n = x.shape[0]
+    if m <= n:
+        return x
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x[:1].expand(m - n, *x.shape[1:])])
+    return np.concatenate([x, np.repeat(x[:1], m - n, axis=0)])
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    k_device: int = 64            # level-0 slots
+    k_pod: int = 128
+    k_global: int = 256
+    h_ici: float = 0.1            # placeholder until calibrate()
+    h_dcn: float = 1.0
+    h_model: float = 10.0         # repository = run the model
+    gamma: float = 1.0
+    metric: str = "l2"
+    algo: str = "cascade"         # greedy | localswap | cascade
+    fused: bool = True            # single fused lookup kernel per batch
+    sharded: bool = False         # not ported: queue 1 item 11
+    prune: str | None = None      # not ported: queue 1 item 10
+    verify: bool = False          # not ported: queue 1 item 10
+    quantize: bool = False        # not ported: queue 1 item 10
+    device_placement: bool = True  # device-resident placement control plane
+    swap_tol: float = 1e-3        # device LOCALSWAP accept margin
+    netduel: bool = False         # not ported: queue 1 item 9
+    bucket: bool = True           # power-of-two batch bucketing
+    min_bucket: int = 8           # smallest bucket (tiny batches coalesce)
+    refresh_on_promotion: bool = False  # not ported: queue 1 item 9
+    refresh_min_gain: float = 0.0  # > 0 not ported: queue 1 item 13
+    warm_start: bool = False      # not ported: queue 1 item 12
+    strategy: str | None = None   # not ported: queue 1 item 13
+
+
+_LATER_SLICES = (
+    ("netduel", "item 9"), ("refresh_on_promotion", "item 9"),
+    ("prune", "item 10"), ("verify", "item 10"), ("quantize", "item 10"),
+    ("sharded", "item 11"), ("warm_start", "item 12"),
+    ("strategy", "item 13"), ("refresh_min_gain", "item 13"))
+
+
+def _check_ported(ecfg: EngineConfig) -> None:
+    for flag, item in _LATER_SLICES:
+        if getattr(ecfg, flag):
+            raise NotImplementedError(
+                f"EngineConfig.{flag} is not ported yet: ROADMAP queue 1 "
+                f"{item}")
+
+
+# retained batch-latency window: percentiles over the newest
+# LATENCY_WINDOW batches (a bounded ring, O(1) memory on long runs)
+LATENCY_WINDOW = 65536
+
+
+@dataclasses.dataclass
+class ServeStats:
+    n_requests: int = 0
+    n_hits: int = 0
+    total_cost: float = 0.0
+    total_approx_cost: float = 0.0
+    model_calls: int = 0
+    batch_latencies_ms: collections.deque = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=LATENCY_WINDOW))
+
+    @property
+    def hit_rate(self) -> float:
+        return self.n_hits / max(self.n_requests, 1)
+
+    @property
+    def mean_cost(self) -> float:
+        return self.total_cost / max(self.n_requests, 1)
+
+    def latency_percentile(self, q: float) -> float:
+        if not self.batch_latencies_ms:
+            return 0.0
+        return float(np.percentile(self.batch_latencies_ms, q))
+
+    @property
+    def p50_ms(self) -> float:
+        return self.latency_percentile(50)
+
+    @property
+    def p95_ms(self) -> float:
+        return self.latency_percentile(95)
+
+    @property
+    def p99_ms(self) -> float:
+        return self.latency_percentile(99)
+
+
+class PlacementBuffer:
+    """The active data plane, versioned: the runtime cache network plus
+    the allocation it was built from. The engine builds the next state
+    and swaps it in with one assignment and a version bump, so a lookup
+    always runs against a complete placement."""
+
+    def __init__(self):
+        self.simcache: SimCacheNetwork | None = None
+        self.slots: np.ndarray | None = None
+        self.slot_cache: np.ndarray | None = None
+        self.version: int = 0
+
+    def install(self, simcache: SimCacheNetwork, slots: np.ndarray,
+                slot_cache: np.ndarray) -> None:
+        self.simcache = simcache
+        self.slots = slots
+        self.slot_cache = slot_cache
+        self.version += 1
+
+
+class SimCacheEngine:
+    """Batched serving for a decoder LM behind a similarity-cache network,
+    on ``device`` (CUDA unless named)."""
+
+    def __init__(self, cfg: ArchConfig, params, ecfg: EngineConfig,
+                 catalog_coords: np.ndarray,
+                 net: CacheNetwork | None = None,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        _check_ported(ecfg)
+        if net is not None and net.n_ingress > 1:
+            raise NotImplementedError(
+                "a multi-ingress network needs the on-path strategy plane "
+                "(ROADMAP queue 1 item 13); the fused simcache serves one "
+                "ingress row of H")
+        self.cfg = cfg
+        self.params = params
+        self.ecfg = ecfg
+        self.coords = np.asarray(catalog_coords, np.float32)
+        self._coords_dev = torch.as_tensor(self.coords, device=self.device)
+        self.custom_net = net is not None
+        self.net = net if net is not None else tpu_hierarchy(
+            ecfg.k_device, ecfg.k_pod, ecfg.k_global,
+            ecfg.h_ici, ecfg.h_dcn, ecfg.h_model)
+        # per-(ingress, object) empirical demand
+        self.counts = np.zeros((self.net.n_ingress, self.coords.shape[0]),
+                               dtype=np.float64)
+        self.responses: dict[int, np.ndarray] = {}        # payload store
+        self.stats = ServeStats()
+        self._prefill = model_api.make_prefill(cfg)
+        self.placement = PlacementBuffer()                # active data plane
+        # background refresh: the worker thread solves, the serving
+        # thread swaps; _pending crosses under _refresh_lock
+        self._refresh_lock = threading.Lock()
+        self._refresh_thread: threading.Thread | None = None
+        self._pending: tuple | None = None
+        self._in_flight = False
+        self.swap_count = 0               # async swaps
+        self.swap_stall_s = 0.0           # total serving-thread swap time
+        self.max_swap_stall_s = 0.0
+        self.last_predicted_cost: float | None = None
+        self.solve_timings: dict = {}     # seconds of the last solve
+
+    # -------------------------------------------------- data-plane state
+    @property
+    def simcache(self) -> SimCacheNetwork | None:
+        """The active runtime network (the double buffer's live half)."""
+        return self.placement.simcache
+
+    @property
+    def placement_version(self) -> int:
+        return self.placement.version
+
+    @property
+    def refresh_in_flight(self) -> bool:
+        return self._in_flight
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------- calibration
+    def calibrate(self, sample_prompt, n: int = 3) -> float:
+        """Measure the repository cost (one prefill batch) in ms and set
+        h_model; ICI/DCN levels get fixed fractions. Rebuilds the
+        topology *and* re-installs the held allocation against the
+        measured costs (a simcache built before calibration prices the
+        old h costs)."""
+        if self.custom_net:
+            raise ValueError(
+                "calibrate() rescales the built-in hierarchy levels; a "
+                "custom CacheNetwork carries its own cost unit")
+        batch = {"tokens": self._tokens(sample_prompt)}
+        self._prefill(self.params, batch)
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            self._prefill(self.params, batch)
+        self._sync()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        self.ecfg.h_model = ms
+        self.ecfg.h_ici = ms * 0.01
+        self.ecfg.h_dcn = ms * 0.1
+        self.net = tpu_hierarchy(self.ecfg.k_device, self.ecfg.k_pod,
+                                 self.ecfg.k_global, self.ecfg.h_ici,
+                                 self.ecfg.h_dcn, self.ecfg.h_model)
+        if self.placement.slots is not None:
+            self._rebuild_simcache(self.placement.slots,
+                                   self.placement.slot_cache)
+        return ms
+
+    # ----------------------------------------------------- control plane
+    def observed_instance(self) -> Instance:
+        """Empirical demand window as a placement instance: counts
+        normalized in f64 with *no* floor (never-requested objects keep
+        an exact-zero rate); a cold engine falls back to uniform."""
+        total = self.counts.sum()
+        if total <= 0.0:
+            lam = np.full_like(self.counts, 1.0 / self.counts.size)
+        else:
+            lam = self.counts / total
+        dem = demand_api.Demand(lam=lam)
+        cat = Catalog(coords=self.coords, metric=self.ecfg.metric,
+                      gamma=self.ecfg.gamma)
+        return Instance(net=self.net, cat=cat, dem=dem)
+
+    def _solve(self, inst: Instance, algo: str,
+               device: bool) -> tuple[np.ndarray, float]:
+        """Run the offline solver on one observed instance; returns the
+        (clamped) allocation and the predicted C(A). ``device`` picks the
+        device control plane (a streaming ``DeviceInstance``) over the
+        NumPy oracles. Records its phases' seconds in
+        ``solve_timings``."""
+        timings: dict = {}
+        t0 = time.perf_counter()
+        if device:
+            dinst = DeviceInstance.from_instance(
+                inst, materialize_ca=False, device=self.device)
+            if algo == "greedy":
+                slots = device_greedy(dinst)
+            elif algo == "localswap":
+                slots = device_localswap(dinst, n_iters=4000,
+                                         tol=self.ecfg.swap_tol).slots_np
+            else:
+                slots = device_greedy_then_localswap(
+                    dinst, max_passes=8, tol=self.ecfg.swap_tol,
+                    timings=timings).slots_np
+        elif algo == "greedy":
+            slots = greedy(inst)
+        elif algo == "localswap":
+            slots = localswap(inst, n_iters=4000).slots
+        else:
+            slots = greedy_then_localswap(inst, max_passes=8).slots
+        slots = np.where(slots < 0, 0, slots)
+        pred = dinst.total_cost(slots) if device else inst.total_cost(slots)
+        timings["solve_s"] = time.perf_counter() - t0
+        self.solve_timings = timings
+        return slots, pred
+
+    def _install(self, slots: np.ndarray, inst: Instance) -> None:
+        """Install a solved allocation into the active buffer (runs on
+        the serving thread — this *is* the swap)."""
+        self._rebuild_simcache(slots, inst.slot_cache)
+
+    def refresh_placement(self, algo: str | None = None,
+                          device: bool | None = None) -> float:
+        """Re-solve offline placement on the observed demand window and
+        rebuild the runtime cache; returns the predicted C(A). ``device``
+        (a bool) follows ``EngineConfig.device_placement`` when None.
+        Synchronous: serving waits for the solve."""
+        algo = algo or self.ecfg.algo
+        if device is None:
+            device = self.ecfg.device_placement
+        inst = self.observed_instance()
+        slots, pred = self._solve(inst, algo, device)
+        self._install(slots, inst)
+        self.last_predicted_cost = pred
+        return pred
+
+    # ------------------------------------------- double-buffered refresh
+    def request_refresh(self, algo: str | None = None,
+                        device: bool | None = None) -> bool:
+        """Start a background re-solve against a snapshot of the observed
+        demand; the active buffer keeps serving. Returns False (and does
+        nothing) if a refresh is already in flight. Install the result
+        with :meth:`poll_refresh`."""
+        if self._in_flight:
+            return False
+        algo = algo or self.ecfg.algo
+        if device is None:
+            device = self.ecfg.device_placement
+        inst = self.observed_instance()       # snapshot: lam is a copy
+        self._in_flight = True
+
+        def work():
+            try:
+                slots, pred = self._solve(inst, algo, device)
+                with self._refresh_lock:
+                    self._pending = (slots, inst, pred)
+            except BaseException:
+                self._in_flight = False       # never wedge the flag
+                raise
+
+        self._refresh_thread = threading.Thread(
+            target=work, name="placement-refresh", daemon=True)
+        self._refresh_thread.start()
+        return True
+
+    def wait_refresh(self, timeout: float | None = None) -> bool:
+        """Block until the in-flight solve finishes (the solve, not the
+        swap). True if nothing is running or it completed in time."""
+        t = self._refresh_thread
+        if t is None or not t.is_alive():
+            return True
+        t.join(timeout)
+        return not t.is_alive()
+
+    def poll_refresh(self) -> bool:
+        """Install a finished background solve, if any: the swap. The
+        serving thread stalls only for the rebuild, timed into
+        ``swap_stall_s``/``max_swap_stall_s``. True iff a swap
+        happened."""
+        with self._refresh_lock:
+            pend, self._pending = self._pending, None
+        if pend is None:
+            return False
+        slots, inst, pred = pend
+        t0 = time.perf_counter()
+        self._install(slots, inst)
+        stall = time.perf_counter() - t0
+        self.swap_stall_s += stall
+        self.max_swap_stall_s = max(self.max_swap_stall_s, stall)
+        self.swap_count += 1
+        self.last_predicted_cost = pred
+        self._in_flight = False
+        return True
+
+    def _rebuild_simcache(self, slots: np.ndarray,
+                          slot_cache: np.ndarray | None = None) -> None:
+        """(Re)build the runtime lookup network from an allocation and
+        install it into the placement buffer (version += 1)."""
+        if slot_cache is None:
+            slot_cache = self.net.slot_layout()
+        if self.custom_net:
+            hs = [float(h) for h in np.asarray(self.net.H[0], np.float64)]
+            h_repo = float(self.net.h_repo[0])
+        else:
+            # the exact f64 config values (the net stores H in f32)
+            hs = [0.0, self.ecfg.h_ici, self.ecfg.h_dcn]
+            h_repo = self.ecfg.h_model
+        simcache = SimCacheNetwork.from_placement(
+            self.coords, slots, slot_cache, hs, h_repo,
+            metric=self.ecfg.metric, gamma=self.ecfg.gamma,
+            fused=self.ecfg.fused, device=self.device)
+        self.placement.install(simcache, np.asarray(slots), slot_cache)
+
+    # --------------------------------------------------------- data plane
+    def _tokens(self, prompts) -> torch.Tensor:
+        return torch.as_tensor(prompts).to(self.device, torch.int64)
+
+    def serve(self, request_ids: np.ndarray, prompts,
+              ingress_ids: np.ndarray | None = None
+              ) -> tuple[list, ServeStats]:
+        """Serve a batch. request_ids index the catalog (their embeddings
+        are the lookup keys); prompts (B, S) are the token batch for
+        misses. ``ingress_ids`` says where each request entered (None →
+        ingress 0). With ``EngineConfig.bucket`` the lookup and the
+        miss-prefill run at the batch's power-of-two bucket shape,
+        padding masked out of every stat."""
+        t_batch0 = time.perf_counter()
+        request_ids = np.asarray(request_ids)
+        n = len(request_ids)
+        if ingress_ids is None:
+            ingress_ids = np.zeros(n, dtype=np.int64)
+        else:
+            ingress_ids = np.asarray(ingress_ids, dtype=np.int64)
+        # np.add.at, not fancy-indexed +=: a batch with the same object
+        # twice must count twice
+        np.add.at(self.counts, (ingress_ids, request_ids), 1.0)
+        self.stats.n_requests += n
+        out: list = [None] * n
+        bucket = self.ecfg.bucket
+
+        if self.simcache is None:
+            miss_idx = np.arange(n)
+        else:
+            q = self._coords_dev[torch.as_tensor(request_ids,
+                                                 device=self.device)]
+            if bucket:
+                q = _pad_rows(q, bucket_size(n, self.ecfg.min_bucket))
+            res = self.simcache.lookup(q)
+            # slice the valid prefix before any accounting
+            hits = res.hit[:n].cpu().numpy()
+            payloads = res.payload[:n].cpu().numpy()
+            self.stats.total_cost += float(res.cost[:n].double().sum())
+            self.stats.total_approx_cost += float(
+                res.approx_cost[:n].double().sum())
+            for i in np.nonzero(hits)[0]:
+                out[i] = self.responses.get(int(payloads[i]))
+            self.stats.n_hits += int(hits.sum())
+            miss_idx = np.nonzero(~hits)[0]
+
+        if len(miss_idx):
+            # repository: run the model on the miss sub-batch (padded to
+            # its own bucket)
+            tokens = self._tokens(prompts)
+            sel = tokens[torch.as_tensor(miss_idx, device=self.device)]
+            if bucket:
+                sel = _pad_rows(sel, bucket_size(len(miss_idx),
+                                                 self.ecfg.min_bucket))
+            logits, _ = self._prefill(self.params, {"tokens": sel})
+            resp = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+            self.stats.model_calls += 1
+            if self.simcache is None:
+                # cold engine: repository cost per miss
+                self.stats.total_cost += self.ecfg.h_model * len(miss_idx)
+            for j, i in enumerate(miss_idx):
+                rid = int(request_ids[i])
+                self.responses[rid] = resp[j:j + 1]
+                out[i] = resp[j:j + 1]
+        self.stats.batch_latencies_ms.append(
+            (time.perf_counter() - t_batch0) * 1e3)
+        return out, self.stats

@@ -126,6 +126,9 @@ def pytest_configure(config):
         "markers",
         "slow: nightly/full-pass only (scripts/ci.sh deselects with "
         '-m "not slow"; CI_FULL=1 runs them)')
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the repro_torch kernels); skips without one")
 
 
 @pytest.fixture

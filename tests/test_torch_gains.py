@@ -1,0 +1,131 @@
+"""The port's placement gain oracle against the JAX reference and the
+host f64 oracle, on the CPU.
+
+Mirrors the gain-oracle tests of tests/test_device_placement.py. The JAX
+side runs its Pallas kernel in interpret mode; the port's wrapper runs
+its plain version (``_gains_tiles``) for CPU tensors.
+
+Tolerances:
+* kernel-level inputs (unit-scale normals): 5e-5 relative and absolute,
+  the reference's own tolerance for its kernel against its oracle;
+* the streamed f32 oracle against host f64 on ``tree_instance``: the
+  reference itself sits 1.64e-4 relative and 3.6e-3 absolute from host
+  f64 there (ROADMAP queue 3, F3), so the port is held to 2.5e-4 relative
+  and 5e-3 absolute — that drift with margin — against both host f64 and
+  the JAX f32 oracle;
+* the materialized path (an explicit C_a): 1e-5 relative, since the
+  reference's materialized oracle sits 5.2e-7 from host f64.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import catalog as jcat
+from repro.core import demand as jdem
+from repro.core import topology as jtop
+from repro.core.objective import DeviceInstance as JDevInst
+from repro.core.objective import Instance as JInst
+from repro.kernels.knn import placement_gains as jgains
+from repro.kernels.knn import placement_gains_matrix as jgains_matrix
+from repro.kernels.knn import placement_gains_ref as jgains_ref
+from repro_torch.core import catalog, demand, topology
+from repro_torch.core.objective import DeviceInstance, Instance
+from repro_torch.kernels.knn import (gains_cuda, placement_gains,
+                                     placement_gains_matrix,
+                                     placement_gains_ref)
+from repro_torch.kernels.knn.gains import H_SENTINEL, _gains_tiles
+
+F3_RTOL, F3_ATOL = 2.5e-4, 5e-3
+
+
+def tree_instances(seed=3):
+    """The reference's multi-ingress tree instance, in both packages."""
+    def build(cat_m, top_m, dem_m, inst_cls):
+        cat = cat_m.embedding_catalog(n=150, dim=4, seed=seed)
+        net = top_m.equi_depth_tree(2, 1, [4, 6], [0.0, 30.0], 300.0)
+        dem = dem_m.zipf(cat, alpha=0.7, n_ingress=net.n_ingress, seed=seed)
+        return inst_cls(net=net, cat=cat, dem=dem)
+    return (build(jcat, jtop, jdem, JInst),
+            build(catalog, topology, demand, Instance))
+
+
+def _inputs(seed=5, R=117, O=83, D=5, I=2, J=3):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((R, D)).astype(np.float32)
+    y = rng.standard_normal((O, D)).astype(np.float32)
+    lam = rng.random((I, R)).astype(np.float32)
+    cur = (rng.random((I, R)) * 4).astype(np.float32)
+    h = rng.random((I, J)).astype(np.float32)
+    h[1, 0] = np.inf                                   # off-path entry
+    return x, y, lam, cur, h
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
+def test_gains_match_reference_kernel_and_oracle(metric):
+    x, y, lam, cur, h = _inputs()
+    hs = np.where(np.isfinite(h), h, H_SENTINEL).astype(np.float32)
+    j = [jnp.asarray(a) for a in (x, y, lam, cur)]
+    ref_pl = np.asarray(jgains(*j, jnp.asarray(h), metric=metric,
+                               use_pallas=True, interpret=True, br=32,
+                               bo=32))
+    ref_or = np.asarray(jgains_ref(*j, jnp.asarray(hs), metric))
+    t = [torch.as_tensor(a) for a in (x, y, lam, cur)]
+    got = placement_gains(*t, torch.as_tensor(h), metric=metric).numpy()
+    oracle = placement_gains_ref(*t, torch.as_tensor(hs), metric).numpy()
+    for ref in (ref_pl, ref_or):
+        np.testing.assert_allclose(got, ref, rtol=5e-5, atol=5e-5)
+        np.testing.assert_allclose(oracle, ref, rtol=5e-5, atol=5e-5)
+    assert got.shape == (83, 3) and np.all(got >= 0.0)
+    # off-path (ingress 1, cache 0) contributes nothing: cache 0 sees
+    # only ingress 0's requests
+    only0 = placement_gains(t[0], t[1], t[2][:1], t[3][:1],
+                            torch.as_tensor(h[:1]), metric=metric).numpy()
+    np.testing.assert_allclose(got[:, 0], only0[:, 0], rtol=1e-6, atol=1e-7)
+
+
+def test_wrapper_is_plain_version_on_cpu():
+    x, y, lam, cur, h = _inputs(seed=8)
+    h = np.where(np.isfinite(h), h, H_SENTINEL).astype(np.float32)
+    t = [torch.as_tensor(a) for a in (x, y, lam, cur, h)]
+    before = gains_cuda.launches
+    out = gains_cuda(*t, "l2")
+    assert gains_cuda.launches == before            # no kernel on the CPU
+    assert out.shape == (3, 83)
+    assert torch.equal(out, _gains_tiles(*t, "l2", 1.0).T)
+
+
+def test_gain_oracle_matches_host_and_reference_on_instance():
+    jinst, inst = tree_instances()
+    cur = np.repeat(inst.net.h_repo[:, None].astype(np.float64),
+                    inst.cat.n, axis=1)
+    host = inst.add_gain_all(cur)                      # (O, J) host f64
+    # the f64 host oracles sum f32 C_a matrices whose matmul-form
+    # self-distances carry sqrt(eps·|x|²) noise — the same drift as F3
+    np.testing.assert_allclose(host, jinst.add_gain_all(cur), rtol=F3_RTOL,
+                               atol=F3_ATOL)
+    dinst = DeviceInstance.from_instance(inst, materialize_ca=False,
+                                         device="cpu")
+    g = dinst.gains(torch.as_tensor(cur, dtype=torch.float32)).numpy()
+    np.testing.assert_allclose(g, host, rtol=F3_RTOL, atol=F3_ATOL)
+    jd = JDevInst.from_instance(jinst, materialize_ca=False)
+    gj = np.asarray(jd.gains(jnp.asarray(cur, jnp.float32)))
+    np.testing.assert_allclose(g, gj, rtol=F3_RTOL, atol=F3_ATOL)
+    dmat = DeviceInstance.from_instance(inst, materialize_ca=True,
+                                        device="cpu")
+    gm = dmat.gains(torch.as_tensor(cur, dtype=torch.float32)).numpy()
+    np.testing.assert_allclose(gm, host, rtol=1e-5, atol=1e-5)
+
+
+def test_gains_matrix_matches_reference():
+    rng = np.random.default_rng(2)
+    ca = (rng.random((60, 45)) * 5).astype(np.float32)
+    lam = rng.random((2, 60)).astype(np.float32)
+    cur = (rng.random((2, 60)) * 6).astype(np.float32)
+    h = np.array([[0.0, 1.0, np.inf], [np.inf, 0.5, 2.0]], np.float32)
+    ref = np.asarray(jgains_matrix(jnp.asarray(ca), jnp.asarray(lam),
+                                   jnp.asarray(cur), jnp.asarray(h), bo=16))
+    got = placement_gains_matrix(torch.as_tensor(ca), torch.as_tensor(lam),
+                                 torch.as_tensor(cur), torch.as_tensor(h),
+                                 bo=16).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)

@@ -1,0 +1,52 @@
+"""The port stands alone: importing every module of ``repro_torch``
+loads neither ``jax`` nor anything of the reference package ``repro``,
+and the package switches TF32 off where it initialises."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+MODULES = [
+    "repro_torch", "repro_torch.core.costs", "repro_torch.core.catalog",
+    "repro_torch.core.demand", "repro_torch.core.topology",
+    "repro_torch.core.objective", "repro_torch.core.simcache",
+    "repro_torch.core.placement", "repro_torch.kernels",
+    "repro_torch.kernels.build", "repro_torch.kernels.knn",
+    "repro_torch.configs.registry", "repro_torch.models.model",
+    "repro_torch.models.convert", "repro_torch.serve.engine"]
+
+_PROBE = """
+import sys
+import importlib
+for m in {mods!r}:
+    importlib.import_module(m)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "repro"
+             or n.startswith("repro."))
+import torch
+print(bad, torch.backends.cuda.matmul.allow_tf32,
+      torch.backends.cudnn.allow_tf32)
+"""
+
+
+@pytest.mark.parametrize("modules", [["repro_torch"], MODULES])
+def test_import_loads_no_jax_and_no_reference(modules):
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    out = subprocess.run([sys.executable, "-c",
+                          _PROBE.format(mods=modules)],
+                         capture_output=True, text=True, env=env,
+                         timeout=300, check=True).stdout.strip()
+    assert out == "[] False False", out
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """``chip_smoke.py`` prints no result and exits non-zero when no
+    CUDA device is available."""
+    if __import__("torch").cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
