@@ -10,11 +10,18 @@ Phases, one line each before the last:
 2. ``build`` — seconds to build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel).
-3. ``kernel`` — each kernel (A fused lookup, B 1-NN, C placement gains)
-   against its plain PyTorch version on the card at main-path shapes:
-   errors against a stated tolerance, index equality, time from CUDA
-   events, the least time the card could take (its bound), and the plain
-   version's time.
+3. ``kernel`` — each kernel (A fused lookup, B 1-NN, C placement gains,
+   D greedy gain, E flash attention) against its plain PyTorch version
+   on the card at main-path shapes: errors against a stated tolerance,
+   index equality, time from CUDA events, the least time the card could
+   take (its bound), the plain version's time, and where PyTorch
+   computes the same function in a library call that call's time, which
+   the port never uses: E ``scaled_dot_product_attention``; A and B the
+   matmul form (one cuBLAS product for the (Q, K) C_a, then a masked
+   min), the plain version of PR 11, which the per-pair plain version
+   replaced. A and E are also held at the ``stream`` phase's shapes
+   (A at its lookup buckets, E at its miss-prefill buckets). D's entry
+   point, ``greedy_gain``, is its own path: counted in a run of its own.
 4. ``stable`` — bitwise pair equality of the shape-stable distance form
    across column, k-batch and row-block shapes on the card (and its
    largest relative difference from the CPU).
@@ -28,7 +35,21 @@ Phases, one line each before the last:
    predicted C(A), the looped lookup (kernel B, its own path, counted
    alone) serving the last warm batch as the fused one did, and
    ``calibrate()`` timed once.
-6. ``kernels`` — one JSON object with every kernel's numbers.
+6. ``prefill`` — granite-3-2b at full width, B = 2, S = 2048 (bf16),
+   with ``use_flash_attention`` on and then off on the same weights:
+   logit agreement, both times, kernel E's launches per flash forward
+   (one per layer); and once more in f32 at B = 1, S = 512, where the
+   two attentions must agree to f32 rounding.
+7. ``stream`` — ``SimCacheEngine`` at full width with
+   ``use_flash_attention=True`` in front of a 20,000-object catalog,
+   driven by ``StreamDriver`` (4 Zipf streams): a cold run, a
+   ``refresh_placement()``, a warm run whose cadence starts a background
+   refresh, and ``drain_refresh()``. Kernel E's and A's launches are
+   counted over the phase.
+8. ``launch`` — ``python -m repro_torch.launch.serve`` in a subprocess,
+   batch loop and streaming; each must exit 0 and print its final
+   ``[serve] … hit-rate`` line.
+9. ``kernels`` — one JSON object with every kernel's numbers.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script then exits non-zero and prints no result. It
@@ -37,6 +58,7 @@ needs a CUDA card and the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -52,17 +74,21 @@ sys.path.insert(0, str(ROOT / "src"))
 # outside the tensor cores — the kernels run fp32 on the CUDA cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 U32 = 2.0 ** -24          # f32 unit roundoff
+U_BF16 = 2.0 ** -8        # bf16 unit roundoff
 
 
 def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """The least time for the work: the larger of bytes over the memory
-    rate and operations over the fp32 peak, and which one it is."""
-    tb, tf = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOPS
+    rate and operations over the peak for their type (fp32 unless
+    named), and which one it is."""
+    tb, tf = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -156,6 +182,24 @@ def _lookup_inputs(torch, coords, Q, K, rng):
     return q, keys, h_key, meta
 
 
+def matmul_lookup(torch, q, keys, h_key, meta, h_repo):
+    """The fused lookup in the matmul form: one library product for the
+    (Q, K) C_a, then a masked min with the repository folded in on a
+    strict ``<``. Timed only, as kernel A's ``library_ms``."""
+    from repro_torch.kernels.knn.ref import _dense_ca
+    ca = _dense_ca(q, keys, "l2", 1.0)
+    cost = torch.where(meta[3][None, :] > 0, ca + h_key[None, :],
+                       torch.full_like(ca, 3.0e38))
+    bcost, best = cost.min(dim=1)
+    use_repo = h_repo < bcost
+    bca = ca.gather(1, best[:, None])[:, 0]
+    return (torch.where(use_repo, h_repo, bcost),
+            torch.where(use_repo, 0.0, bca),
+            torch.where(use_repo, -1, meta[0, best]),
+            torch.where(use_repo, 0, meta[1, best]),
+            torch.where(use_repo, -1, meta[2, best]))
+
+
 def phase_kernel_a(torch, coords, rng, Q, K):
     from repro_torch.kernels.knn.knn import fused_lookup_cuda
     from repro_torch.kernels.knn.ref import _dense_ca, fused_lookup_ref
@@ -183,6 +227,9 @@ def phase_kernel_a(torch, coords, rng, Q, K):
     ok = bool((err <= tol).all()) and unjustified == 0
     ms = cuda_ms(torch, lambda: fused_lookup_cuda(*args), 50)
     plain = cuda_ms(torch, lambda: fused_lookup_ref(*args), 10)
+    lib = matmul_lookup(torch, q, keys, h_key, meta, h_repo)
+    lib_ms = cuda_ms(torch, lambda: matmul_lookup(torch, q, keys, h_key,
+                                                  meta, h_repo), 10)
     D = q.shape[1]
     bms, by = bound_ms(4 * (Q * D + K * D + K + 4 * K + 5 * Q),
                        2 * Q * K * D + 5 * Q * K)
@@ -195,7 +242,9 @@ def phase_kernel_a(torch, coords, rng, Q, K):
                level_slot_equal_where_payload_equal=bool(
                    ((lvl_k == lvl_p) & (slot_k == slot_p))[~diff].all()),
                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-               library_ms=None, ok=ok)
+               library="matmul form", library_ms=lib_ms,
+               library_max_abs_err=float((lib[0] - cost_p).abs().max()),
+               ok=ok)
     log("kernel", **res)
     if not ok:
         raise RuntimeError(f"kernel A disagrees with its plain version: "
@@ -220,13 +269,18 @@ def phase_kernel_b(torch, coords, rng, Q, K):
     ok = bool((err <= tol).all()) and unjustified == 0
     ms = cuda_ms(torch, lambda: knn_cuda(q, keys, "l2"), 50)
     plain = cuda_ms(torch, lambda: knn_ref(q, keys, "l2"), 10)
+    lib_ms = cuda_ms(torch, lambda: _dense_ca(q, keys, "l2", 1.0).min(1),
+                     10)
     D = q.shape[1]
     bms, by = bound_ms(4 * (Q * D + K * D + 2 * Q), 2 * Q * K * D + 4 * Q * K)
     res = dict(name="knn", Q=Q, K=K, D=D, max_abs_err=float(err.max()),
                tol_max=float(tol.max()), index_equal=int((~diff).sum()),
                index_near_tie=int(diff.sum()), unjustified=unjustified,
                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-               library_ms=None, ok=ok)
+               library="matmul form", library_ms=lib_ms,
+               library_max_abs_err=float(
+                   (full.min(1).values - cost_p).abs().max()),
+               ok=ok)
     log("kernel", **res)
     if not ok:
         raise RuntimeError(f"kernel B disagrees with its plain version: "
@@ -415,6 +469,305 @@ def phase_engine(torch, cat, dem):
     # kernel B runs on the looped path only, so its count is that run's
     return dict(counts, knn=twin_counts["knn"])
 
+# (B, S): the long prefills (the last ragged), then the stream phase's
+# miss-prefill buckets of 128-token prompts
+FLASH_SHAPES = ((1, 4096), (4, 2048), (2, 1000),
+                (8, 128), (16, 128), (32, 128), (64, 128))
+
+
+def phase_kernel_e(torch):
+    """Kernel E in bf16 at granite-3-2b's attention shape (H 32, KH 8,
+    Dh 64), causal, at each (B, S) of ``FLASH_SHAPES``. Both versions compute in f32 and
+    round the output once to bf16, so they may differ by one bf16 step
+    of the output (2^-7 relative at most) where their f32 values, which
+    agree to a few f32 ulps, straddle a rounding boundary; 1e-4 absolute
+    covers that f32 disagreement for outputs near zero."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_cuda, flash_ref
+    dev = torch.device("cuda")
+    H, KH, Dh = 32, 8, 64
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for B, S in FLASH_SHAPES:
+        q = torch.randn(B, S, H, Dh, generator=g, device=dev).bfloat16()
+        k = torch.randn(B, S, KH, Dh, generator=g, device=dev).bfloat16()
+        v = torch.randn(B, S, KH, Dh, generator=g, device=dev).bfloat16()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)
+
+        got = flash_cuda(q, k, v, causal=True)
+        ref = flash_ref(q, k, v, causal=True)
+        lib = sdpa()
+        torch.cuda.synchronize()
+        ref32 = ref.float()
+        err = (got.float() - ref32).abs()
+        tol = 2.0 ** -7 * ref32.abs() + 1e-4
+        ok = bool((err <= tol).all()) and got.dtype == torch.bfloat16
+        ms = cuda_ms(torch, lambda: flash_cuda(q, k, v, causal=True), 10)
+        plain = cuda_ms(torch, lambda: flash_ref(q, k, v, causal=True), 3)
+        lib_ms = cuda_ms(torch, sdpa, 10)
+        flops = 4 * Dh * H * B * S * (S + 1) / 2      # causal QK^T and PV
+        n_bytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
+        bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+        res = dict(name="flash_attention", B=B, S=S, H=H, KH=KH, Dh=Dh,
+                   dtype="bfloat16", causal=True,
+                   max_abs_err=float(err.max()),
+                   max_rel_err=float((err / ref32.abs().clamp_min(1e-30))
+                                     .max()),
+                   tol_max=float(tol.max()),
+                   library_max_abs_err=float((lib.float() - ref32).abs()
+                                             .max()),
+                   gflop=flops / 1e9, mbytes=n_bytes / 1e6, ms=ms,
+                   plain_ms=plain, bound_ms=bms, bound_by=by,
+                   fp32_core_bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                   library="scaled_dot_product_attention", library_ms=lib_ms,
+                   ok=ok)
+        log("kernel", **res)
+        if not ok:
+            raise RuntimeError(f"kernel E disagrees with its plain version: "
+                               f"{res}")
+        rows.append(res)
+        del q, k, v, got, ref, lib, ref32, err, tol
+        torch.cuda.empty_cache()
+    return rows[0]
+
+
+def phase_kernel_d(torch, coords, lam_np):
+    """Kernel D at the single-ingress GREEDY seed of the engine's 10⁵
+    catalog: R = O = 10⁵, D = 100, J = 3, cur = h_repo, every H row
+    (0, 15, 150). Tolerance as kernel C's (each term moves by at most
+    λ_r times its pair's C_a tolerance, plus 1e-4 relative for the two
+    f32 sums over R). On these inputs D computes C's function at I = 1,
+    in C's order, so the two are compared as well. Then the entry point,
+    ``greedy_gain``, runs once with the launch counts zeroed: D's path."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.gain import gain_cuda, gain_ref, greedy_gain
+    from repro_torch.kernels.knn.gains import gains_cuda
+    dev = torch.device("cuda")
+    x = torch.as_tensor(coords, device=dev)
+    lam = torch.as_tensor(lam_np, dtype=torch.float32, device=dev)
+    lam = lam.reshape(-1)
+    cur = torch.full_like(lam, 1000.0)
+    h1 = torch.tensor([[0.0, 15.0, 150.0]], device=dev)
+    hr = h1.expand(x.shape[0], 3).contiguous()
+    got = gain_cuda(x, x, lam, cur, hr, "l2")
+    ref = gain_ref(x, x, lam, cur, hr, "l2").T
+    c = gains_cuda(x, x, lam[None], cur[None], h1, "l2")
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    tol = gain_tolerance(torch, x, lam[None]) + 1e-4 * ref.abs()
+    ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+    ms = cuda_ms(torch, lambda: gain_cuda(x, x, lam, cur, hr, "l2"), 3)
+    plain = cuda_ms(torch, lambda: gain_ref(x, x, lam, cur, hr, "l2"), 1,
+                    warmup=0)
+    reset_launch_counts()                        # D's own path
+    out = greedy_gain(x, x, lam, cur, hr, "l2")
+    torch.cuda.synchronize()
+    launches = launch_counts()["greedy_gain"]
+    R, D = x.shape
+    J = 3
+    bms, by = bound_ms(4 * (2 * R * D + 2 * R + R * J + J * R),
+                       2 * R * R * D + R * R * (3 + 3 * J))
+    res = dict(name="greedy_gain", R=R, O=R, D=D, J=J,
+               max_abs_err=float(err.max()),
+               max_rel_err=float((err / ref.abs().clamp_min(1e-30)).max()),
+               tol_max=float(tol.max()),
+               vs_kernel_c_max_abs_diff=float((got - c).abs().max()),
+               vs_kernel_c_bitwise=bool(torch.equal(got, c)),
+               entry_point_shape=list(out.shape), launches=launches,
+               ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+               library_ms=None, ok=ok)
+    log("kernel", **res)
+    if not ok or launches != 1 or \
+            not torch.allclose(got, c, rtol=1e-6, atol=1e-3):
+        raise RuntimeError(f"kernel D disagrees: {res}")
+    return res
+
+
+def _logit_diff(torch, a, b):
+    a, b = a.float(), b.float()
+    return (float((a - b).abs().max()),
+            float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+
+
+def phase_prefill(torch):
+    """granite-3-2b at full width, B = 2, S = 2048, on one set of random
+    weights: the prefill with ``use_flash_attention`` on (kernel E) and
+    off (plain attention), in bf16 and in f32 compute. Tolerances: in
+    f32 the two attentions agree to f32 rounding, so the logits (of
+    order 1) to 1e-3; in bf16 flash-vs-plain must differ by no more than
+    bf16 itself moves the plain logits away from f32 (the same forward
+    computed in f32): kernel E adds no error beyond the compute type's
+    own. Returns the weights for the ``stream`` phase."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import init_params, make_prefill
+
+    cfg = get_config("granite-3-2b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S = 2, 2048
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (B, S)), device="cuda")
+    batch = {"tokens": toks}
+    logits, times, flash_launches = {}, {}, {}
+    for dt in ("bfloat16", "float32"):
+        for flash in (True, False):
+            run_cfg = dataclasses.replace(cfg, compute_dtype=dt,
+                                          use_flash_attention=flash)
+            pre = make_prefill(run_cfg)
+            reset_launch_counts()
+            out, _ = pre(params, batch)
+            torch.cuda.synchronize()
+            flash_launches[(dt, flash)] = launch_counts()["flash_attention"]
+            logits[(dt, flash)] = out
+            times[(dt, flash)] = cuda_ms(torch, lambda: pre(params, batch),
+                                         2, warmup=0)
+    d_bf16, top1_bf16 = _logit_diff(torch, logits[("bfloat16", True)],
+                                    logits[("bfloat16", False)])
+    d_f32, top1_f32 = _logit_diff(torch, logits[("float32", True)],
+                                  logits[("float32", False)])
+    d_noise, top1_noise = _logit_diff(torch, logits[("bfloat16", False)],
+                                      logits[("float32", False)])
+    shape_ok = all(tuple(v.shape) == (B, S, cfg.padded_vocab)
+                   and bool(torch.isfinite(v.float()).all())
+                   for v in logits.values())
+    res = dict(model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               B=B, S=S, init_s=init_s,
+               bf16=dict(flash_ms=times[("bfloat16", True)],
+                         plain_ms=times[("bfloat16", False)],
+                         max_abs_logit_diff=d_bf16, top1_agreement=top1_bf16,
+                         tol=d_noise),
+               f32=dict(flash_ms=times[("float32", True)],
+                        plain_ms=times[("float32", False)],
+                        max_abs_logit_diff=d_f32, top1_agreement=top1_f32,
+                        tol=1e-3),
+               bf16_vs_f32_plain=dict(max_abs_logit_diff=d_noise,
+                                      top1_agreement=top1_noise),
+               flash_launches_per_forward=flash_launches[("bfloat16", True)],
+               plain_forward_flash_launches=flash_launches[("bfloat16",
+                                                            False)],
+               shape_ok=shape_ok)
+    log("prefill", **res)
+    checks = [shape_ok, d_f32 <= 1e-3, d_bf16 <= d_noise,
+              flash_launches[("bfloat16", True)] == cfg.n_layers,
+              flash_launches[("float32", True)] == cfg.n_layers,
+              flash_launches[("bfloat16", False)] == 0]
+    if not all(checks):
+        raise RuntimeError(f"prefill phase failed its checks: {checks}")
+    return params
+
+
+def phase_stream(torch, params):
+    """The engine with ``use_flash_attention=True`` behind the streaming
+    driver, on the ``prefill`` phase's full-width weights."""
+    from repro_torch import tracecount
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import catalog as catalog_api
+    from repro_torch.core import demand as demand_api
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (EngineConfig, SimCacheEngine,
+                                   StreamDriver, StreamSpec, bucket_size)
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              use_flash_attention=True)
+    cat = catalog_api.embedding_catalog(n=20_000, dim=100, seed=1)
+    ecfg = EngineConfig(h_ici=15.0, h_dcn=150.0, h_model=1000.0)
+    eng = SimCacheEngine(cfg, params, ecfg, cat.coords)
+    streams = [StreamSpec(demand=demand_api.zipf(cat, alpha=1.0, seed=s + 1),
+                          rate=1.0 + s, seed=s + 1, name=f"stream{s}")
+               for s in range(4)]
+    drv = StreamDriver(eng, streams, max_batch=256, batch_window=2.0,
+                       prompt_len=128, refresh_every=0)
+    refresh_every = 32
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()                        # the main path's run
+    t0 = time.perf_counter()
+    with tracecount.snapshot() as snap:
+        cold = drv.run(2048)
+        cold_stats, eng.stats = eng.stats, type(eng.stats)()
+        t = time.perf_counter()
+        pred = eng.refresh_placement()
+        refresh_s = time.perf_counter() - t
+        drv.refresh_every = refresh_every
+        warm = drv.run(4096)
+        t = time.perf_counter()
+        drained = drv.drain_refresh()
+        drain_s = time.perf_counter() - t
+        signatures = snap.delta("fused_lookup")
+    counts = launch_counts()                      # read just after
+    phase_s = time.perf_counter() - t0
+    w = eng.stats
+    buckets = sorted({bucket_size(n, ecfg.min_bucket)
+                      for n in warm.batch_sizes})
+    res = dict(model=cfg.name, n_layers=cfg.n_layers, catalog=cat.n,
+               dim=cat.dim, streams=len(streams), max_batch=256,
+               batch_window=2.0, prompt_len=128,
+               cold=dict(requests=cold.n_requests, batches=cold.n_batches,
+                         req_per_s=cold.requests_per_s, p50_ms=cold.p50_ms,
+                         p95_ms=cold.p95_ms, p99_ms=cold.p99_ms,
+                         hit_rate=cold_stats.hit_rate,
+                         mean_cost=cold_stats.mean_cost,
+                         model_calls=cold_stats.model_calls),
+               refresh_s=refresh_s, predicted_cost=pred,
+               solve=dict(eng.solve_timings),
+               warm=dict(requests=warm.n_requests, batches=warm.n_batches,
+                         req_per_s=warm.requests_per_s, p50_ms=warm.p50_ms,
+                         p95_ms=warm.p95_ms, p99_ms=warm.p99_ms,
+                         hit_rate=w.hit_rate, mean_cost=w.mean_cost,
+                         model_calls=w.model_calls,
+                         distinct_batch_sizes=warm.distinct_batch_sizes,
+                         buckets=buckets,
+                         refresh_every=refresh_every,
+                         refreshes_started=warm.refreshes_started,
+                         swaps_in_run=warm.swaps,
+                         max_swap_stall_ms=warm.max_swap_stall_s * 1e3),
+               drain=dict(swapped=drained, seconds=drain_s),
+               swaps=eng.swap_count, fused_lookup_signatures=signatures,
+               launches=counts, phase_s=phase_s,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30)
+    log("stream", **res)
+    checks = [counts["flash_attention"] > 0, counts["fused_lookup"] > 0,
+              eng.swap_count >= 1, w.hit_rate > 0,
+              w.mean_cost < ecfg.h_model, signatures <= len(buckets),
+              warm.refreshes_started >= 1, not eng.refresh_in_flight]
+    if not all(checks):
+        raise RuntimeError(f"stream phase failed its checks: {checks}")
+    return counts
+
+
+def phase_launch():
+    """The command-line entry point, as a user runs it, in a subprocess
+    of its own (its kernel launches are its own, counted nowhere)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for extra in (["--requests", "256"],
+                  ["--streaming", "--streams", "4", "--requests", "1024"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               "granite-3-2b", *extra]
+        t = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=ROOT, timeout=600)
+        lines = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith("[serve]")]
+        final = next((ln for ln in reversed(lines) if "hit-rate" in ln), None)
+        runs.append(dict(args=extra, rc=p.returncode,
+                         seconds=time.perf_counter() - t, serve_lines=lines))
+        if final:
+            print(final, flush=True)
+        if p.returncode != 0 or final is None:
+            log("launch", runs=runs, stderr_tail=p.stderr[-3000:])
+            raise RuntimeError(f"the launcher failed: {' '.join(extra)}")
+    log("launch", runs=runs)
+
 
 def main() -> int:
     import torch
@@ -440,20 +793,39 @@ def main() -> int:
     rng = np.random.default_rng(0)
     a = phase_kernel_a(torch, cat.coords, rng, 256, 448)
     phase_kernel_a(torch, cat.coords, rng, 256, 65536)
+    for q_bucket in (8, 16, 32, 64):             # the stream's buckets
+        phase_kernel_a(torch, cat.coords, rng, q_bucket, 448)
     b = phase_kernel_b(torch, cat.coords, rng, 256, 448)
     phase_kernel_b(torch, cat.coords, rng, 256, 65536)
     c = phase_kernel_c(torch, cat.coords, dem.lam)
+    d = phase_kernel_d(torch, cat.coords, dem.lam)
+    e = phase_kernel_e(torch)
     phase_stable(torch, cat.coords)
     counts = phase_engine(torch, cat, dem)
+    gc.collect()                                  # the engine's model
+    torch.cuda.empty_cache()
+    params = phase_prefill(torch)
+    stream_counts = phase_stream(torch, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_launch()
+    counts["greedy_gain"] = d["launches"]         # its entry point's run
+    counts["flash_attention"] = stream_counts["flash_attention"]
 
     sources = {"fused_lookup": ("src/repro_torch/kernels/csrc/knn.cu",
                                 "src/repro/kernels/knn/knn.py:88"),
                "knn": ("src/repro_torch/kernels/csrc/knn.cu",
                        "src/repro/kernels/knn/knn.py:58"),
                "placement_gains": ("src/repro_torch/kernels/csrc/gains.cu",
-                                   "src/repro/kernels/knn/gains.py:90")}
+                                   "src/repro/kernels/knn/gains.py:90"),
+               "greedy_gain": ("src/repro_torch/kernels/csrc/gains.cu",
+                               "src/repro/kernels/gain/gain.py:36"),
+               "flash_attention": (
+                   "src/repro_torch/kernels/csrc/flash.cu",
+                   "src/repro/kernels/flash_attention/flash.py:36")}
     kernels = []
-    for r in (a, b, c):
+    for r in (a, b, c, d, e):
         src, repl = sources[r["name"]]
         kernels.append(dict(
             name=r["name"], route="cuda", source=src, replaces=repl,

@@ -70,7 +70,7 @@ class ArchConfig:
     remat: bool = True
     scan_layers: bool = True
     kv_cache_dtype: str = "compute"   # compute (bf16) | int8 (quantized)
-    use_flash_attention: bool = False  # fused attention kernel (not ported)
+    use_flash_attention: bool = False  # prefill attention via kernel E
 
     def __post_init__(self):
         if self.head_dim == 0:

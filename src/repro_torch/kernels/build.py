@@ -24,13 +24,14 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("knn.cu", "gains.cu")
+SOURCES = ("knn.cu", "gains.cu", "flash.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the launchers (every one returns its cudaError_t)
 SIGNATURES = {
     "knn.cu": {
@@ -41,6 +42,12 @@ SIGNATURES = {
     "gains.cu": {
         "simcache_gains": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                            _P, _P],
+        "simcache_greedy_gain": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                 _P, _P],
+    },
+    "flash.cu": {
+        "simcache_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               *[_L] * 12, _F, _I, _I, _P],
     },
 }
 

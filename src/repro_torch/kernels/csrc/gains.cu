@@ -1,24 +1,31 @@
-// Placement gain oracle for Hopper (sm_90a): kernel C.
+// Placement gain oracles for Hopper (sm_90a): kernels C and D.
 //
-//   gain[j, o'] = sum_i sum_r lam[i, r] * relu(cur[i, r] - C_a(x_r, y_o') - H[i, j])
+//   C: gain[j, o'] = sum_i sum_r lam[i, r] * relu(cur[i, r] - C_a(x_r, y_o') - H[i, j])
+//   D: gain[j, o'] = sum_r lam[r] * relu(cur[r] - C_a(x_r, y_o') - H[r, j])
 //
-// Replaces the Pallas TPU kernel `_gains_kernel` of
-// src/repro/kernels/knn/gains.py, whose grid walked request tiles along a
-// sequential minor axis, accumulating into the (J, BO) output block. Here
-// one thread block owns a tile of BO candidates and walks *all* request
-// tiles itself, in order, accumulating its J sums per candidate in
-// registers: no atomics, so every candidate's sum has one fixed order that
-// does not depend on launch order or on how candidates are split across
-// blocks (the property a candidate-sharded oracle relies on).
+// Kernel C replaces the Pallas TPU kernel `_gains_kernel` of
+// src/repro/kernels/knn/gains.py; kernel D, its single-ingress precursor
+// with one H row per request, replaces `_gain_kernel` of
+// src/repro/kernels/gain/gain.py. Both TPU grids walked request tiles
+// along a sequential minor axis, accumulating into the (J, BO) output
+// block. Here one thread block owns a tile of BO candidates and walks
+// *all* request tiles itself, in order, accumulating its J sums per
+// candidate in registers: no atomics, so every candidate's sum has one
+// fixed order that does not depend on launch order or on how candidates
+// are split across blocks (the property a candidate-sharded oracle relies
+// on). D is the same kernel with I = 1 and H read per request
+// (PER_REQUEST_H); padding is not needed: the ragged request and
+// candidate edges are masked, where the TPU path padded with zeros.
 //
-// What bounds it: the C_a tile, 2*R*O*D flops of fp32 work on the CUDA
+// What bounds them: the C_a tile, 2*R*O*D flops of fp32 work on the CUDA
 // cores; the fold adds about 3*I*J flops per pair and the bytes (R*D +
-// O*D + 2*I*R floats in, J*O out) are negligible. Design: candidate
-// chunks are staged in shared memory with a padded stride, request chunks
-// are read as float4 broadcasts (one shared load feeds four fused
-// multiply-adds), and each thread keeps RPT request dot products for its
-// one candidate. The C_a value of each pair is computed once and folded
-// into every (ingress, cache) pair. fp32 on the CUDA cores, no tuning yet.
+// O*D + 2*I*R floats in, plus R*J of H for D, J*O out) are negligible.
+// Design: candidate chunks are staged in shared memory with a padded
+// stride, request chunks are read as float4 broadcasts (one shared load
+// feeds four fused multiply-adds), and each thread keeps RPT request dot
+// products for its one candidate. The C_a value of each pair is computed
+// once and folded into every (ingress, cache) pair. fp32 on the CUDA
+// cores, no tuning yet.
 #include <cuda_runtime.h>
 
 #include "distance.cuh"
@@ -34,7 +41,9 @@ constexpr int kRG = kThreads / kBO;       // request groups per block
 constexpr int kRPT = kBR / kRG;           // requests per thread per tile
 constexpr int kMaxJ = 8;                  // caches held in registers
 
-template <int METRIC>
+// PER_REQUEST_H: H is (R, J), one row per request (kernel D, I = 1);
+// otherwise H is (I, J), one row per ingress (kernel C).
+template <int METRIC, bool PER_REQUEST_H>
 __global__ void __launch_bounds__(kThreads)
 gains_kernel(const float* __restrict__ x, const float* __restrict__ y,
              const float* __restrict__ lam, const float* __restrict__ cur,
@@ -117,10 +126,11 @@ gains_kernel(const float* __restrict__ x, const float* __restrict__ y,
         for (int ii = 0; ii < I; ++ii) {
           const float l = __ldg(&lam[(size_t)ii * R + r]);
           const float slack = __ldg(&cur[(size_t)ii * R + r]) - ca;
+          const float* hrow =
+              PER_REQUEST_H ? H + (size_t)r * J : H + (size_t)ii * J;
 #pragma unroll
           for (int j = 0; j < kMaxJ; ++j)
-            if (j < J)
-              acc[j] += l * fmaxf(slack - __ldg(&H[ii * J + j]), 0.0f);
+            if (j < J) acc[j] += l * fmaxf(slack - __ldg(&hrow[j]), 0.0f);
         }
       }
     }
@@ -139,6 +149,33 @@ gains_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+template <bool PER_REQUEST_H>
+int launch_gains(const float* x, const float* y, const float* lam,
+                 const float* cur, const float* H, int R, int O, int D,
+                 int I, int J, int metric, float gamma, float* out,
+                 void* stream) {
+  if (J < 1 || J > kMaxJ) return -1;
+  const dim3 grid((O + kBO - 1) / kBO);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (metric) {
+    case kMetricL1:
+      gains_kernel<kMetricL1, PER_REQUEST_H><<<grid, kThreads, 0, s>>>(
+          x, y, lam, cur, H, R, O, D, I, J, gamma, out);
+      break;
+    case kMetricL2:
+      gains_kernel<kMetricL2, PER_REQUEST_H><<<grid, kThreads, 0, s>>>(
+          x, y, lam, cur, H, R, O, D, I, J, gamma, out);
+      break;
+    case kMetricL2Sq:
+      gains_kernel<kMetricL2Sq, PER_REQUEST_H><<<grid, kThreads, 0, s>>>(
+          x, y, lam, cur, H, R, O, D, I, J, gamma, out);
+      break;
+    default:
+      return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace simcache
 
@@ -150,25 +187,18 @@ extern "C" int simcache_gains(const float* x, const float* y,
                               const float* H, int R, int O, int D, int I,
                               int J, int metric, float gamma, float* out,
                               void* stream) {
-  using namespace simcache;
-  if (J < 1 || J > kMaxJ) return -1;
-  const dim3 grid((O + kBO - 1) / kBO);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (metric) {
-    case kMetricL1:
-      gains_kernel<kMetricL1><<<grid, kThreads, 0, s>>>(
-          x, y, lam, cur, H, R, O, D, I, J, gamma, out);
-      break;
-    case kMetricL2:
-      gains_kernel<kMetricL2><<<grid, kThreads, 0, s>>>(
-          x, y, lam, cur, H, R, O, D, I, J, gamma, out);
-      break;
-    case kMetricL2Sq:
-      gains_kernel<kMetricL2Sq><<<grid, kThreads, 0, s>>>(
-          x, y, lam, cur, H, R, O, D, I, J, gamma, out);
-      break;
-    default:
-      return -1;
-  }
-  return (int)cudaGetLastError();
+  return simcache::launch_gains<false>(x, y, lam, cur, H, R, O, D, I, J,
+                                       metric, gamma, out, stream);
+}
+
+// Kernel D: the (J, O) gain table. x (R, D), y (O, D), lam and cur (R,),
+// H (R, J) with off-path entries already mapped to a finite sentinel;
+// J <= 8.
+extern "C" int simcache_greedy_gain(const float* x, const float* y,
+                                    const float* lam, const float* cur,
+                                    const float* H, int R, int O, int D,
+                                    int J, int metric, float gamma,
+                                    float* out, void* stream) {
+  return simcache::launch_gains<true>(x, y, lam, cur, H, R, O, D, 1, J,
+                                      metric, gamma, out, stream);
 }

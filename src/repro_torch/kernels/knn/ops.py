@@ -14,8 +14,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.knn.knn import _INF, fused_lookup_cuda, knn_cuda
+from repro_torch.tracecount import Signatures
 
 LANE = 128
+_FUSED_SIGNATURES = Signatures("fused_lookup")
 
 
 def _pad_axis(x: torch.Tensor, mult: int, axis: int,
@@ -63,7 +65,18 @@ def fused_lookup(queries: torch.Tensor, keys: torch.Tensor,
     the repository, (cost, approx_cost, level, slot, payload) — eq. (1)
     as one kernel launch. ``fold_repo=False`` returns the segment-local
     minimum only; with no valid key (+INF, 0, repo_level, 0, −1).
+
+    Each new signature (the shapes, dtypes and static arguments a
+    ``jax.jit`` cache entry would key on) bumps
+    ``tracecount["fused_lookup"]`` once, where the reference's trace
+    does.
     """
+    _FUSED_SIGNATURES.seen(
+        (queries.device.type,)
+        + tuple((tuple(t.shape), t.dtype) for t in (queries, keys, h_key,
+                                                    meta))
+        + (metric, float(gamma), float(h_repo), int(repo_level),
+           bool(fold_repo)))
     nq, dev = queries.shape[0], queries.device
     if keys.shape[0] == 0:          # no cache keys at all → repository
         cost0 = h_repo if fold_repo else _INF

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.costs import approx_cost
+from repro_torch.core.costs import approx_cost, approx_cost_from_distance
 
 _INF = 3.0e38
 
@@ -24,10 +24,36 @@ def _dense_ca(queries: torch.Tensor, keys: torch.Tensor, metric: str,
     return approx_cost(queries.float(), keys.float(), metric, gamma)
 
 
+def _pair_ca(queries: torch.Tensor, keys: torch.Tensor, metric: str,
+             gamma: float, block: int = 1 << 26) -> torch.Tensor:
+    """:func:`_dense_ca` with each pair's dot product summed on its own
+    (an elementwise product reduced over the feature axis, in query
+    blocks of at most ``block`` elements). A plain matmul on the CPU sums
+    a small batch (one row, or a few rows against many keys) in another
+    order than a large one, which broke the engine's bucketed ≡
+    unbucketed contract on the lookup's plain version; on CPU tensors
+    this reduction follows only D, so a pair's value depends on neither
+    the batch it came in nor the keys beside it. On the card, where the
+    engine runs the kernels and never this version, a ``sum(-1)`` is
+    not promised to be shape-independent (see
+    ``core.costs.pairwise_distance_stable``)."""
+    if metric == "l1":          # elementwise |q − k| sums: already per pair
+        return _dense_ca(queries, keys, metric, gamma)
+    q, k = queries.float(), keys.float()
+    rows = max(1, block // max(k.shape[0] * k.shape[1], 1))
+    dot = torch.cat([(q[s:s + rows, None, :] * k[None]).sum(-1)
+                     for s in range(0, q.shape[0], rows)]) \
+        if q.shape[0] else q.new_zeros((0, k.shape[0]))
+    d2 = ((q * q).sum(-1)[:, None] + (k * k).sum(-1)[None, :]
+          - 2.0 * dot).clamp_min(0.0)
+    return approx_cost_from_distance(d2 if metric == "l2sq" else d2.sqrt(),
+                                     gamma)
+
+
 def knn_ref(queries: torch.Tensor, keys: torch.Tensor, metric: str = "l2",
             gamma: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of kernel B: (min C_a per query, its argmin)."""
-    cost = _dense_ca(queries, keys, metric, gamma)
+    cost = _pair_ca(queries, keys, metric, gamma)
     idx = torch.argmin(cost, dim=1).to(torch.int32)
     return cost.min(dim=1).values, idx
 
@@ -63,7 +89,7 @@ def fused_lookup_ref(queries: torch.Tensor, keys: torch.Tensor,
     segment-local minimum, (+INF, 0, repo_level, 0, −1) when no valid key
     exists. Returns (cost, approx_cost, level, slot, payload).
     """
-    ca = _dense_ca(queries, keys, metric, gamma)
+    ca = _pair_ca(queries, keys, metric, gamma)
     valid = (meta[3, :] > 0)[None, :]
     cost = torch.where(valid, ca + h_key[None, :].float(),
                        torch.full_like(ca, _INF))

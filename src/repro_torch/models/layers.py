@@ -41,19 +41,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True,
+                  kv_len: int | torch.Tensor | None = None) -> torch.Tensor:
     """Grouped-query attention. q: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh)
-    with H % KH == 0. Returns (B, Sq, H, Dh); softmax in f32."""
+    with H % KH == 0. Causal is top-left (key t ≤ query s); ``kv_len``
+    masks out keys at t ≥ kv_len. Masked scores are −1e30, as in the
+    reference. Returns (B, Sq, H, Dh); softmax in f32."""
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KH, H // KH, Dh)
     scale = 1.0 / math.sqrt(Dh)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
                           k.float()) * scale            # (B,KH,G,Sq,Skv)
+    tpos = torch.arange(Skv, device=q.device)[None, :]
     if causal:
-        keep = (torch.arange(Skv, device=q.device)[None, :]
-                <= torch.arange(Sq, device=q.device)[:, None])
+        keep = tpos <= torch.arange(Sq, device=q.device)[:, None]
         scores = torch.where(keep, scores, -1e30)
+    if kv_len is not None:
+        scores = torch.where(tpos < kv_len, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     return out.reshape(B, Sq, H, Dh).to(q.dtype)

@@ -40,8 +40,10 @@ def init_params(cfg: ArchConfig, seed: int = 0,
 
 def make_prefill(cfg: ArchConfig) -> Callable:
     """(params, batch) → (logits, caches): the full-sequence forward the
-    engine runs on its misses. ``params`` is the model."""
+    engine runs on its misses, with ``cfg`` — not the config ``params``
+    was built with — deciding the attention (``use_flash_attention``),
+    as in the reference. ``params`` is the model."""
     def prefill(params: DecoderLM, batch: dict):
         with torch.inference_mode():
-            return params(batch["tokens"], batch.get("positions"))
+            return params(batch["tokens"], batch.get("positions"), cfg=cfg)
     return prefill

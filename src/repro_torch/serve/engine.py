@@ -19,8 +19,9 @@ Counterpart of ``repro.serve.engine`` for this slice of the port:
 * ``calibrate`` — times the repository prefill, sets the h costs in
   milliseconds and re-installs the held allocation at those costs.
 
-The repository is the dense decoder of repro_torch.models, run in plain
-PyTorch. Flags of later slices raise ``NotImplementedError`` naming the
+The repository is the dense decoder of repro_torch.models, its prefill
+attention on kernel E when the engine's ``cfg.use_flash_attention`` is
+set. Flags of later slices raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -209,9 +210,12 @@ class SimCacheEngine:
         self._refresh_thread: threading.Thread | None = None
         self._pending: tuple | None = None
         self._in_flight = False
+        self.refresh_count = 0            # completed installs (sync+async)
         self.swap_count = 0               # async swaps
         self.swap_stall_s = 0.0           # total serving-thread swap time
         self.max_swap_stall_s = 0.0
+        self.last_swap_stall_s = 0.0      # most recent swap only: what a
+        #                                   driver run's window maxes over
         self.last_predicted_cost: float | None = None
         self.solve_timings: dict = {}     # seconds of the last solve
 
@@ -315,6 +319,7 @@ class SimCacheEngine:
         """Install a solved allocation into the active buffer (runs on
         the serving thread — this *is* the swap)."""
         self._rebuild_simcache(slots, inst.slot_cache)
+        self.refresh_count += 1
 
     def refresh_placement(self, algo: str | None = None,
                           device: bool | None = None) -> float:
@@ -384,6 +389,7 @@ class SimCacheEngine:
         stall = time.perf_counter() - t0
         self.swap_stall_s += stall
         self.max_swap_stall_s = max(self.max_swap_stall_s, stall)
+        self.last_swap_stall_s = stall
         self.swap_count += 1
         self.last_predicted_cost = pred
         self._in_flight = False

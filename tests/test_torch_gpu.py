@@ -5,10 +5,13 @@ device is available. Run them on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances are those of the CPU differentials (tests/test_torch_lookup.py
-and tests/test_torch_gains.py): the kernels and the plain versions sum in
+Tolerances are those of the CPU differentials (tests/test_torch_lookup.py,
+tests/test_torch_gains.py, tests/test_torch_gain_kernel.py and
+tests/test_torch_flash.py): the kernels and the plain versions sum in
 different orders, so values agree to the matmul-form bound and indices
-agree wherever the plain version's decision is not a near-tie.
+agree wherever the plain version's decision is not a near-tie. Kernel E
+is held to the reference's flash tolerances (3e-5 in f32: an online and
+an offline f32 softmax; 2e-2 in bf16: one rounding of the output).
 """
 import numpy as np
 import pytest
@@ -17,6 +20,9 @@ import torch
 from repro_torch.core import catalog, costs, demand, topology
 from repro_torch.core.objective import DeviceInstance, Instance
 from repro_torch.core.placement import device_greedy, greedy
+from repro_torch.kernels.flash_attention import (flash_attention, flash_cuda,
+                                                 flash_ref)
+from repro_torch.kernels.gain import gain_cuda, gain_ref, greedy_gain
 from repro_torch.kernels.knn import gains as G
 from repro_torch.kernels.knn.knn import fused_lookup_cuda, knn_cuda
 from repro_torch.kernels.knn.ref import (_dense_ca, fused_lookup_ref,
@@ -141,3 +147,96 @@ def test_device_greedy_on_card_matches_host(cuda):
     n0 = G.gains_cuda.launches
     np.testing.assert_array_equal(device_greedy(d), greedy(inst))
     assert G.gains_cuda.launches == n0 + 1
+
+
+FLASH_CASES = [
+    # (B, Sq, Skv, H, KH, Dh, causal): tests/test_torch_flash.py's cases,
+    # plus a granite-shaped one (H 32, KH 8, Dh 64) with a ragged length
+    (2, 64, 64, 4, 2, 32, True),
+    (1, 100, 100, 8, 8, 64, True),
+    (2, 37, 37, 4, 1, 16, True),
+    (1, 64, 128, 4, 2, 32, False),
+    (2, 256, 256, 8, 2, 128, True),
+    (1, 1, 64, 4, 4, 32, False),
+    (3, 203, 203, 32, 8, 64, True),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, case, dtype, tol):
+    B, Sq, Skv, H, KH, Dh, causal = case
+    g = torch.Generator().manual_seed(Sq * 7 + Skv)
+    q = torch.randn(B, Sq, H, Dh, generator=g).to(cuda, dtype)
+    k = torch.randn(B, Skv, KH, Dh, generator=g).to(cuda, dtype)
+    v = torch.randn(B, Skv, KH, Dh, generator=g).to(cuda, dtype)
+    n0 = flash_cuda.launches
+    got = flash_attention(q, k, v, causal=causal)
+    ref = flash_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_cuda.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (B, Sq, H, Dh)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_reads_strided_layout_and_kv_len(cuda):
+    """A (B, S, H, Dh) view with a padded head axis (non-contiguous, unit
+    stride on Dh) and a ``kv_len`` shorter than Skv: the kernel reads the
+    strides and masks like the plain version."""
+    g = torch.Generator().manual_seed(5)
+    big = torch.randn(2, 50, 6, 32, generator=g).to(cuda)
+    q = big[:, :, :4]
+    kv = torch.randn(2, 90, 4, 32, generator=g).to(cuda)[:, :, :2]
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    for causal in (True, False):
+        got = flash_cuda(q, kv, kv, causal=causal, kv_len=61)
+        ref = flash_ref(q, kv, kv, causal=causal, kv_len=61)
+        torch.testing.assert_close(got, ref, rtol=3e-5, atol=3e-5)
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 4, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="float16"):
+        flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("metric,gamma", [("l1", 1.0), ("l2", 1.0),
+                                          ("l2sq", 1.0), ("l2", 0.5)])
+@pytest.mark.parametrize("R,O,D,J", [(1, 1, 2, 1), (333, 257, 13, 3),
+                                     (300, 300, 64, 5), (1000, 70, 100, 8)])
+def test_gain_kernel_matches_plain(cuda, metric, gamma, R, O, D, J):
+    g = torch.Generator().manual_seed(R + O)
+    x = torch.randn(R, D, generator=g).to(cuda)
+    y = torch.randn(O, D, generator=g).to(cuda)
+    lam = torch.rand(R, generator=g).to(cuda)
+    cur = (torch.rand(R, generator=g) * 6).to(cuda)
+    H = torch.rand(R, J, generator=g).to(cuda)
+    H[::5, 0] = float("inf")                     # off-path entries
+    n0 = gain_cuda.launches
+    got = greedy_gain(x, y, lam, cur, H, metric, gamma)
+    Hs = torch.where(torch.isfinite(H), H, torch.full_like(H, 1e30))
+    ref = gain_ref(x, y, lam, cur, Hs, metric, gamma)
+    torch.cuda.synchronize()
+    assert gain_cuda.launches == n0 + 1
+    torch.testing.assert_close(got, ref, rtol=5e-5, atol=5e-4)
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+def test_gain_kernel_matches_kernel_c_on_equal_rows(cuda, metric):
+    """With every H row equal, kernel D computes kernel C's function at
+    I = 1, in the same order: the two agree to f32 rounding."""
+    g = torch.Generator().manual_seed(9)
+    R, O, D = 777, 301, 37
+    x = torch.randn(R, D, generator=g).to(cuda)
+    y = torch.randn(O, D, generator=g).to(cuda)
+    lam = torch.rand(R, generator=g).to(cuda)
+    cur = (torch.rand(R, generator=g) * 6).to(cuda)
+    hrow = torch.tensor([[0.0, 0.5, 2.0]], device=cuda)
+    d = gain_cuda(x, y, lam, cur, hrow.expand(R, 3), metric)
+    c = G.gains_cuda(x, y, lam[None], cur[None], hrow, metric)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d, c, rtol=1e-6, atol=1e-6)

@@ -14,7 +14,15 @@ MODULES = [
     "repro_torch.core.placement", "repro_torch.kernels",
     "repro_torch.kernels.build", "repro_torch.kernels.knn",
     "repro_torch.configs.registry", "repro_torch.models.model",
-    "repro_torch.models.convert", "repro_torch.serve.engine"]
+    "repro_torch.models.convert", "repro_torch.serve.engine",
+    "repro_torch.tracecount", "repro_torch.serve.stream",
+    "repro_torch.launch", "repro_torch.launch.serve",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.flash_attention.flash",
+    "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.gain",
+    "repro_torch.kernels.gain.ref", "repro_torch.kernels.gain.gain",
+    "repro_torch.kernels.gain.ops"]
 
 _PROBE = """
 import sys
