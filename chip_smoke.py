@@ -9,7 +9,10 @@ Phases, one line each before the last:
    power limit line.
 2. ``build`` — seconds to build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
-   parallel).
+   parallel); for kernel E's bf16 (tensor-core) instantiations, ptxas's
+   registers and spills, their dynamic shared memory, and where
+   ``cuobjdump`` exists the ``HGMMA`` (and ``HMMA``) instructions in
+   their SASS, which must be there.
 3. ``kernel`` — each kernel (A fused lookup, B 1-NN, C placement gains,
    D greedy gain, E flash attention) against its plain PyTorch version
    on the card at main-path shapes: errors against a stated tolerance,
@@ -20,8 +23,11 @@ Phases, one line each before the last:
    matmul form (one cuBLAS product for the (Q, K) C_a, then a masked
    min), the plain version of PR 11, which the per-pair plain version
    replaced. A and E are also held at the ``stream`` phase's shapes
-   (A at its lookup buckets, E at its miss-prefill buckets). D's entry
-   point, ``greedy_gain``, is its own path: counted in a run of its own.
+   (A at its lookup buckets, E at its miss-prefill buckets). E is also
+   held to ``flash_blocked``, its plain counterpart step for step, and
+   reports its achieved TFLOP/s, its share of the bound and the
+   exponential floor. D's entry point, ``greedy_gain``, is its own path:
+   counted in a run of its own.
 4. ``stable`` — bitwise pair equality of the shape-stable distance form
    across column, k-batch and row-block shapes on the card (and its
    largest relative difference from the CPU).
@@ -61,6 +67,7 @@ import dataclasses
 import gc
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -75,6 +82,7 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
+EX2_PER_CLOCK = 16 * 132  # hardware exponentials per clock: 16 per SM
 U32 = 2.0 ** -24          # f32 unit roundoff
 U_BF16 = 2.0 ** -8        # bf16 unit roundoff
 
@@ -139,24 +147,84 @@ def phase_device(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
     log("device", kind=name, count=torch.cuda.device_count(),
-        nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
-    return name
+        nvidia_smi=smi, max_sm_clock_mhz=clock_mhz,
+        torch=torch.__version__, cuda=torch.version.cuda)
+    return name, clock_mhz * 1e6
+
+
+def _ptxas_entries(log_: str) -> dict:
+    """ptxas -v's registers and spills for each kernel (entry function)."""
+    out, fn = {}, None
+    for line in log_.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = out.setdefault(m[1], {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if fn is not None and m:
+            fn.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if fn is not None and m:
+            fn["registers"] = int(m[1])
+    return out
+
+
+def _sass_mma_counts(lib_path) -> dict | None:
+    """HGMMA and HMMA instructions in each bf16 kernel E of the library's
+    SASS, by head width; None where the toolkit has no cuobjdump."""
+    import os
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        m = re.search(r"flash_tc_kernelILi(\d+)E", block.split()[0])
+        if m:
+            counts[f"Dh{m[1]}"] = dict(
+                HGMMA=len(re.findall(r"\bHGMMA\.", block)),
+                HMMA=len(re.findall(r"\bHMMA\.", block)))
+    return counts
 
 
 def phase_build():
-    import re
-
     from repro_torch.kernels.build import BUILD_DIR, LIBRARY
+    from repro_torch.kernels.flash_attention.flash import HEAD_DIMS
     LIBRARY.fn("simcache_knn")
     (BUILD_DIR / "ptxas.log").write_text(LIBRARY.ptxas_log)
     log_ = LIBRARY.ptxas_log
+    entries = _ptxas_entries(log_)
+    flash_tc = {}
+    for name, info in entries.items():
+        m = re.search(r"flash_tc_kernelILi(\d+)E", name)
+        if m:
+            dh = int(m[1])
+            flash_tc[f"Dh{dh}"] = dict(
+                info, dynamic_smem_bytes=LIBRARY.fn(
+                    "simcache_flash_tc_smem")(dh))
+    sass = _sass_mma_counts(LIBRARY.path("flash.cu"))
     log("build", seconds=LIBRARY.build_seconds,
         registers=sorted({int(r) for r in re.findall(
             r"Used (\d+) registers", log_)}),
         spill_bytes=max([int(b) for b in re.findall(
             r"(\d+) bytes spill stores", log_)] or [0]),
+        flash_bf16_kernels=dict(sorted(flash_tc.items())),
+        flash_bf16_sass=sass,
         ptxas_log=str(BUILD_DIR / "ptxas.log"))
+    if sorted(flash_tc) != sorted(f"Dh{d}" for d in HEAD_DIMS) or (
+            sass is not None and (
+                sorted(sass) != sorted(flash_tc)
+                or not all(c["HGMMA"] > 0 for c in sass.values()))):
+        raise RuntimeError(f"kernel E's bf16 build is not on the tensor "
+                           f"cores: {flash_tc}, {sass}")
 
 
 def _lookup_inputs(torch, coords, Q, K, rng):
@@ -475,16 +543,36 @@ FLASH_SHAPES = ((1, 4096), (4, 2048), (2, 1000),
                 (8, 128), (16, 128), (32, 128), (64, 128))
 
 
-def phase_kernel_e(torch):
+def phase_kernel_e(torch, clock_hz: float):
     """Kernel E in bf16 at granite-3-2b's attention shape (H 32, KH 8,
-    Dh 64), causal, at each (B, S) of ``FLASH_SHAPES``. Both versions compute in f32 and
-    round the output once to bf16, so they may differ by one bf16 step
-    of the output (2^-7 relative at most) where their f32 values, which
-    agree to a few f32 ulps, straddle a rounding boundary; 1e-4 absolute
-    covers that f32 disagreement for outputs near zero."""
+    Dh 64), causal, at each (B, S) of ``FLASH_SHAPES``, on the tensor
+    cores.
+
+    Against ``flash_ref`` (the exact f32 softmax, output rounded once to
+    bf16), the kernel has two roundings: each p to bf16 before the PV
+    product (|δp| ≤ u·p, u = 2^-8) and its output to bf16. So per element
+    |o − ref| ≤ u·|o| + u·|ref| + u·Σ_t p_t·|v_t| / l + f32 terms, and
+    Σ_t p_t·|v_t| / l is exactly ``flash_ref(q, k, |v|)``. The check
+    allows 2^-7·|ref| + 2^-7·flash_ref(q, k, |v|) + 1e-4: twice the p
+    term, and 1e-4 absolute for the f32 sums and ``ex2.approx`` (about 2
+    ulp) near zero. It stays far inside the reference's own 2e-2.
+
+    Against ``flash_blocked`` (the same tiles, online softmax and bf16 p,
+    in plain PyTorch), only f32 rounding differs: the two outputs are
+    one bf16 step apart at most (≤ 2^-7·|blocked|), plus, where the
+    kernel's p may round to the other bf16 neighbour (its f32 p within
+    ``ref.P_REL`` of a rounding boundary), that neighbour's gap times |v| / l
+    (``flash_blocked``'s slack), plus 1e-4.
+
+    Reported beside the time: achieved TFLOP/s, the share of the bound
+    (operations at the bf16 peak), the exponential floor (the causal
+    B·H·S·(S+1)/2 exponentials at 16 per clock per SM on 132 SMs, at the
+    card's maximum SM clock) and SDPA's time."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_cuda, flash_ref
+    from repro_torch.kernels.flash_attention import (flash_blocked,
+                                                     flash_cuda, flash_ref)
+    from repro_torch.kernels.flash_attention.ref import P_REL
     dev = torch.device("cuda")
     H, KH, Dh = 32, 8, 64
     g = torch.Generator(device=dev).manual_seed(0)
@@ -501,37 +589,50 @@ def phase_kernel_e(torch):
 
         got = flash_cuda(q, k, v, causal=True)
         ref = flash_ref(q, k, v, causal=True)
+        abs_v = flash_ref(q.float(), k.float(), v.float().abs(), causal=True)
+        blk, slack = flash_blocked(q, k, v, causal=True,
+                                   p_dtype=torch.bfloat16, p_rel=P_REL)
         lib = sdpa()
         torch.cuda.synchronize()
-        ref32 = ref.float()
-        err = (got.float() - ref32).abs()
-        tol = 2.0 ** -7 * ref32.abs() + 1e-4
-        ok = bool((err <= tol).all()) and got.dtype == torch.bfloat16
-        ms = cuda_ms(torch, lambda: flash_cuda(q, k, v, causal=True), 10)
+        got32, ref32, blk32 = got.float(), ref.float(), blk.float()
+        err = (got32 - ref32).abs()
+        tol = 2.0 ** -7 * ref32.abs() + 2.0 ** -7 * abs_v + 1e-4
+        err_b = (got32 - blk32).abs()
+        tol_b = 2.0 ** -7 * blk32.abs() + slack + 1e-4
+        ok = (bool((err <= tol).all()) and bool((err_b <= tol_b).all())
+              and got.dtype == torch.bfloat16)
+        ms = cuda_ms(torch, lambda: flash_cuda(q, k, v, causal=True), 20)
         plain = cuda_ms(torch, lambda: flash_ref(q, k, v, causal=True), 3)
-        lib_ms = cuda_ms(torch, sdpa, 10)
+        lib_ms = cuda_ms(torch, sdpa, 20)
         flops = 4 * Dh * H * B * S * (S + 1) / 2      # causal QK^T and PV
         n_bytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
         bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+        n_exp = B * H * S * (S + 1) / 2
         res = dict(name="flash_attention", B=B, S=S, H=H, KH=KH, Dh=Dh,
                    dtype="bfloat16", causal=True,
                    max_abs_err=float(err.max()),
                    max_rel_err=float((err / ref32.abs().clamp_min(1e-30))
                                      .max()),
                    tol_max=float(tol.max()),
+                   worst_err_over_tol=float((err / tol).max()),
+                   vs_blocked_max_abs_err=float(err_b.max()),
+                   vs_blocked_worst_err_over_tol=float((err_b / tol_b).max()),
                    library_max_abs_err=float((lib.float() - ref32).abs()
                                              .max()),
                    gflop=flops / 1e9, mbytes=n_bytes / 1e6, ms=ms,
+                   tflop_per_s=flops / ms / 1e9,
                    plain_ms=plain, bound_ms=bms, bound_by=by,
-                   fp32_core_bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                   share_of_bound=bms / ms,
+                   exp_floor_ms=n_exp / (EX2_PER_CLOCK * clock_hz) * 1e3,
                    library="scaled_dot_product_attention", library_ms=lib_ms,
                    ok=ok)
         log("kernel", **res)
         if not ok:
-            raise RuntimeError(f"kernel E disagrees with its plain version: "
+            raise RuntimeError(f"kernel E disagrees with its plain versions: "
                                f"{res}")
         rows.append(res)
-        del q, k, v, got, ref, lib, ref32, err, tol
+        del q, k, v, got, ref, abs_v, blk, slack, lib, got32, ref32, blk32
+        del err, tol, err_b, tol_b
         torch.cuda.empty_cache()
     return rows[0]
 
@@ -605,6 +706,7 @@ def phase_prefill(torch):
     own. Returns the weights for the ``stream`` phase."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_cuda
     from repro_torch.models.model import init_params, make_prefill
 
     cfg = get_config("granite-3-2b")
@@ -616,16 +718,20 @@ def phase_prefill(torch):
     toks = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab, (B, S)), device="cuda")
     batch = {"tokens": toks}
-    logits, times, flash_launches = {}, {}, {}
+    logits, times, flash_launches, by_dtype = {}, {}, {}, {}
     for dt in ("bfloat16", "float32"):
         for flash in (True, False):
             run_cfg = dataclasses.replace(cfg, compute_dtype=dt,
                                           use_flash_attention=flash)
             pre = make_prefill(run_cfg)
+            before = dict(flash_cuda.launches_by_dtype)
             reset_launch_counts()
             out, _ = pre(params, batch)
             torch.cuda.synchronize()
             flash_launches[(dt, flash)] = launch_counts()["flash_attention"]
+            by_dtype[(dt, flash)] = {
+                str(t).removeprefix("torch."): n - before[t]
+                for t, n in flash_cuda.launches_by_dtype.items()}
             logits[(dt, flash)] = out
             times[(dt, flash)] = cuda_ms(torch, lambda: pre(params, batch),
                                          2, warmup=0)
@@ -653,12 +759,17 @@ def phase_prefill(torch):
                flash_launches_per_forward=flash_launches[("bfloat16", True)],
                plain_forward_flash_launches=flash_launches[("bfloat16",
                                                             False)],
+               flash_launches_by_dtype={f"{dt} flash": by_dtype[(dt, True)]
+                                        for dt in ("bfloat16", "float32")},
                shape_ok=shape_ok)
     log("prefill", **res)
     checks = [shape_ok, d_f32 <= 1e-3, d_bf16 <= d_noise,
               flash_launches[("bfloat16", True)] == cfg.n_layers,
               flash_launches[("float32", True)] == cfg.n_layers,
-              flash_launches[("bfloat16", False)] == 0]
+              flash_launches[("bfloat16", False)] == 0,
+              # bf16 reaches the tensor-core kernel, f32 the CUDA-core one
+              by_dtype[("bfloat16", True)]["bfloat16"] == cfg.n_layers,
+              by_dtype[("float32", True)]["float32"] == cfg.n_layers]
     if not all(checks):
         raise RuntimeError(f"prefill phase failed its checks: {checks}")
     return params
@@ -784,7 +895,7 @@ def main() -> int:
     from repro_torch.core import demand as demand_api
 
     t_start = time.perf_counter()
-    kind = phase_device(torch)
+    kind, clock_hz = phase_device(torch)
     phase_build()
     # the repo's emulation of the paper's §6.2 Amazon embeddings at the
     # 10⁵-object scale, Zipf(0.8) demand
@@ -799,7 +910,7 @@ def main() -> int:
     phase_kernel_b(torch, cat.coords, rng, 256, 65536)
     c = phase_kernel_c(torch, cat.coords, dem.lam)
     d = phase_kernel_d(torch, cat.coords, dem.lam)
-    e = phase_kernel_e(torch)
+    e = phase_kernel_e(torch, clock_hz)
     phase_stable(torch, cat.coords)
     counts = phase_engine(torch, cat, dem)
     gc.collect()                                  # the engine's model

@@ -48,6 +48,7 @@ SIGNATURES = {
     "flash.cu": {
         "simcache_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                *[_L] * 12, _F, _I, _I, _P],
+        "simcache_flash_tc_smem": [_I],
     },
 }
 
@@ -59,7 +60,7 @@ class KernelLibrary:
         self._lock = threading.Lock()
         self._fns: dict[str, ctypes._CFuncPtr] | None = None
         self.build_seconds: float | None = None
-        self.ptxas_log: str = ""
+        self.ptxas_log: str = ""           # ptxas -v, every source
 
     def _nvcc(self) -> str:
         nvcc = shutil.which("nvcc") or os.path.join(
@@ -70,7 +71,9 @@ class KernelLibrary:
                                "toolkit")
         return nvcc
 
-    def _target(self, src: str) -> pathlib.Path:
+    def path(self, src: str) -> pathlib.Path:
+        """The library one source builds into (named by a hash of every
+        source and the flags)."""
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for f in sorted(CSRC.iterdir()):
             h.update(f.name.encode())
@@ -80,7 +83,7 @@ class KernelLibrary:
     def _build(self) -> dict:
         t0 = time.perf_counter()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        todo, procs = {s: self._target(s) for s in SOURCES}, {}
+        todo, procs = {s: self.path(s) for s in SOURCES}, {}
         for src, out in todo.items():
             if out.exists():
                 continue
@@ -93,9 +96,14 @@ class KernelLibrary:
         for src, (p, tmp, out) in procs.items():
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{logs[src]}")
+            out.with_suffix(".ptxas.log").write_text(logs[src])
             os.replace(tmp, out)               # atomic under parallel builds
-        self.ptxas_log = "\n".join(f"== {s}\n{log}" for s, log in
-                                   logs.items())
+        # each library's report, also where an earlier run built it
+        reports = {src: out.with_suffix(".ptxas.log")
+                   for src, out in todo.items()}
+        self.ptxas_log = "\n".join(
+            f"== {src}\n" + (r.read_text() if r.exists() else "(no report)")
+            for src, r in reports.items())
         fns = {}
         for src, out in todo.items():
             lib = ctypes.CDLL(str(out))

@@ -4,8 +4,8 @@ Kernel E (``kernels/csrc/flash.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/flash.py::_flash_kernel``: the GQA
 attention forward with an online softmax, whose running (max m,
 normalizer l, accumulator o) per query row stay on chip so that device
-memory sees only q, k, v and o. One thread block owns a (batch·head,
-query tile) pair and walks the KV tiles in order; query head h reads
+memory sees only q, k, v and o. One thread block owns a query tile of
+one (batch, head) and walks the KV tiles in order; query head h reads
 KV head h // (H / KH), with no repeated KV. Masks are the reference's:
 keys at k ≥ kv_len and, when causal, keys k > q (top-left, no offset)
 score −1e30; the output is o / max(l, 1e-30), rounded once to the
@@ -13,11 +13,22 @@ input dtype. Causal KV tiles wholly above the diagonal are skipped,
 which is exact (key 0 is unmasked for every row, so a skipped tile
 would add exp(−1e30 − m) = 0).
 
+The input type picks the kernel, with no fall-through between them:
+
+- bf16 runs on the tensor cores (wgmma, f32 sums), with K and V staged
+  by TMA in tiles of ``ref.BLOCK_K`` keys. Its one rounding beyond the
+  plain version's is p to bf16 before the PV product; its plain
+  counterpart step for step is
+  :func:`~repro_torch.kernels.flash_attention.ref.flash_blocked`.
+- f32 runs on the CUDA cores in IEEE f32 (the tensor cores would round
+  f32 to TF32, which the port forbids).
+
 :func:`flash_cuda` reads the public (B, S, H, Dh) layout through its
-strides (the last axis contiguous), in place of the reference's
-transpose-and-pad copies. For CPU tensors it runs the plain version,
+strides, in place of the reference's transpose-and-pad copies. For CPU
+tensors it runs the plain version,
 :func:`~repro_torch.kernels.flash_attention.ref.flash_ref`.
-``flash_cuda.launches`` counts kernel launches and nothing else.
+``flash_cuda.launches`` counts kernel launches and nothing else;
+``flash_cuda.launches_by_dtype`` splits them by input type.
 """
 from __future__ import annotations
 
@@ -30,9 +41,17 @@ HEAD_DIMS = (16, 32, 64, 128)     # head widths the kernel is built for
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` with a unit-stride last axis (a copy only if it lacks one)."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as kernel E reads it: a unit-stride last axis and, for bf16
+    (whose tiles TMA copies), a 16-byte-aligned address and 16-byte
+    batch, sequence and head strides. A view that lacks them is copied
+    into a fresh contiguous tensor; any other is read in place."""
+    if t.stride(-1) != 1:
+        return t.contiguous()
+    if t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16 or any(s * 2 % 16 for s in t.stride()[:3])):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
 
 
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,7 +85,7 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Skv == 0 or not 1 <= kv_len <= Skv:
         raise ValueError(f"kernel E needs 1 <= kv_len <= Skv, got kv_len "
                          f"{kv_len}, Skv {Skv}")
-    q, k, v = _rows(q), _rows(k), _rows(v)
+    q, k, v = _operand(q), _operand(k), _operand(v)
     o = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=dev)
     if B * Sq * H == 0:
         return o
@@ -77,7 +96,9 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         1.0 / float(Dh) ** 0.5, int(bool(causal)), kv_len, stream_ptr(q)),
         "simcache_flash_fwd")
     flash_cuda.launches += 1
+    flash_cuda.launches_by_dtype[q.dtype] += 1
     return o
 
 
 flash_cuda.launches = 0
+flash_cuda.launches_by_dtype = dict.fromkeys(DTYPE_IDS, 0)

@@ -11,7 +11,12 @@ tests/test_torch_flash.py): the kernels and the plain versions sum in
 different orders, so values agree to the matmul-form bound and indices
 agree wherever the plain version's decision is not a near-tie. Kernel E
 is held to the reference's flash tolerances (3e-5 in f32: an online and
-an offline f32 softmax; 2e-2 in bf16: one rounding of the output).
+an offline f32 softmax; 2e-2 in bf16: one rounding of the output). Its
+bf16 path (the tensor cores, with p rounded to bf16 before the PV
+product) is also held to the bound derived from that rounding,
+2^-7·|ref| + 2^-7·flash_ref(q, k, |v|) + 1e-4, and to its plain
+counterpart step for step, ``flash_blocked``, within one bf16 output step
+plus the slack of a p known to 2^-13 (tests/test_torch_flash_tc.py).
 """
 import numpy as np
 import pytest
@@ -20,8 +25,10 @@ import torch
 from repro_torch.core import catalog, costs, demand, topology
 from repro_torch.core.objective import DeviceInstance, Instance
 from repro_torch.core.placement import device_greedy, greedy
-from repro_torch.kernels.flash_attention import (flash_attention, flash_cuda,
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_blocked, flash_cuda,
                                                  flash_ref)
+from repro_torch.kernels.flash_attention.ref import P_REL
 from repro_torch.kernels.gain import gain_cuda, gain_ref, greedy_gain
 from repro_torch.kernels.knn import gains as G
 from repro_torch.kernels.knn.knn import fused_lookup_cuda, knn_cuda
@@ -151,7 +158,8 @@ def test_device_greedy_on_card_matches_host(cuda):
 
 FLASH_CASES = [
     # (B, Sq, Skv, H, KH, Dh, causal): tests/test_torch_flash.py's cases,
-    # plus a granite-shaped one (H 32, KH 8, Dh 64) with a ragged length
+    # plus granite-shaped ones (H 32, KH 8, Dh 64): a ragged length and
+    # a stream-phase miss-prefill bucket
     (2, 64, 64, 4, 2, 32, True),
     (1, 100, 100, 8, 8, 64, True),
     (2, 37, 37, 4, 1, 16, True),
@@ -159,7 +167,26 @@ FLASH_CASES = [
     (2, 256, 256, 8, 2, 128, True),
     (1, 1, 64, 4, 4, 32, False),
     (3, 203, 203, 32, 8, 64, True),
+    (8, 128, 128, 32, 8, 64, True),
 ]
+
+
+def _hold_bf16(got, q, k, v, causal, kv_len=None):
+    """The bf16 kernel's two bounds: the one derived from rounding p
+    (against the exact softmax) and one bf16 step plus slack (against
+    ``flash_blocked``)."""
+    ref = flash_ref(q, k, v, causal=causal, kv_len=kv_len).float()
+    abs_v = flash_ref(q.float(), k.float(), v.float().abs(), causal=causal,
+                      kv_len=kv_len)
+    blk, slack = flash_blocked(q, k, v, causal=causal, kv_len=kv_len,
+                               p_dtype=torch.bfloat16, p_rel=P_REL)
+    got, blk = got.float(), blk.float()
+    tol = 2.0 ** -7 * ref.abs() + 2.0 ** -7 * abs_v + 1e-4
+    assert ((got - ref).abs() <= tol).all(), float(((got - ref).abs()
+                                                    / tol).max())
+    tol_b = 2.0 ** -7 * blk.abs() + slack + 1e-4
+    assert ((got - blk).abs() <= tol_b).all(), float(((got - blk).abs()
+                                                      / tol_b).max())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
@@ -171,13 +198,18 @@ def test_flash_kernel_matches_plain(cuda, case, dtype, tol):
     q = torch.randn(B, Sq, H, Dh, generator=g).to(cuda, dtype)
     k = torch.randn(B, Skv, KH, Dh, generator=g).to(cuda, dtype)
     v = torch.randn(B, Skv, KH, Dh, generator=g).to(cuda, dtype)
-    n0 = flash_cuda.launches
+    n0, by0 = flash_cuda.launches, dict(flash_cuda.launches_by_dtype)
     got = flash_attention(q, k, v, causal=causal)
     ref = flash_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_cuda.launches == n0 + 1
+    # f32 went to the CUDA-core kernel, bf16 to the tensor-core one
+    assert flash_cuda.launches_by_dtype == {
+        t: n + (t == dtype) for t, n in by0.items()}
     assert got.dtype == dtype and got.shape == (B, Sq, H, Dh)
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        _hold_bf16(got, q, k, v, causal)
 
 
 def test_flash_kernel_reads_strided_layout_and_kv_len(cuda):
@@ -193,6 +225,39 @@ def test_flash_kernel_reads_strided_layout_and_kv_len(cuda):
         got = flash_cuda(q, kv, kv, causal=causal, kv_len=61)
         ref = flash_ref(q, kv, kv, causal=causal, kv_len=61)
         torch.testing.assert_close(got, ref, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("layout", ["padded heads", "72-byte head stride",
+                                    "8-byte offset"])
+def test_flash_bf16_reads_strided_layout_and_kv_len(cuda, layout):
+    """The bf16 twin of the test above. A padded head axis keeps every
+    stride a multiple of 16 bytes, so TMA reads the view in place; a
+    72-byte head stride or an address 8 bytes off 16 makes the wrapper
+    copy it first. Either way the kernel masks ``kv_len`` like the plain
+    version."""
+    g = torch.Generator().manual_seed(6)
+    if layout == "padded heads":
+        q = torch.randn(2, 50, 6, 32, generator=g).to(cuda).bfloat16()[
+            :, :, :4]
+        kv = torch.randn(2, 90, 4, 32, generator=g).to(cuda).bfloat16()[
+            :, :, :2]
+    elif layout == "72-byte head stride":
+        q = torch.randn(2, 50, 4, 36, generator=g).to(cuda).bfloat16()[
+            ..., :32]
+        kv = torch.randn(2, 90, 2, 36, generator=g).to(cuda).bfloat16()[
+            ..., :32]
+    else:
+        flat = torch.randn(2 * 50 * 4 * 32 + 4, generator=g).to(cuda)
+        q = flat.bfloat16()[4:].view(2, 50, 4, 32)
+        kv = torch.randn(2, 90, 2, 32, generator=g).to(cuda).bfloat16()
+        assert q.data_ptr() % 16 == 8
+    assert not (q.is_contiguous() and q.data_ptr() % 16 == 0)
+    for causal in (True, False):
+        n0 = flash_cuda.launches_by_dtype[torch.bfloat16]
+        got = flash_cuda(q, kv, kv, causal=causal, kv_len=61)
+        torch.cuda.synchronize()
+        assert flash_cuda.launches_by_dtype[torch.bfloat16] == n0 + 1
+        _hold_bf16(got, q, kv, kv, causal, kv_len=61)
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
