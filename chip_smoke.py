@@ -9,8 +9,9 @@ Phases, one line each before the last:
    power limit line.
 2. ``build`` — seconds to build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
-   parallel); for kernel E's bf16 (tensor-core) instantiations, ptxas's
-   registers and spills, their dynamic shared memory, and where
+   parallel); for each instantiation of kernels A and B, ptxas's
+   registers and spills; for kernel E's bf16 (tensor-core)
+   instantiations, the same, their dynamic shared memory, and where
    ``cuobjdump`` exists the ``HGMMA`` (and ``HMMA``) instructions in
    their SASS, which must be there.
 3. ``kernel`` — each kernel (A fused lookup, B 1-NN, C placement gains,
@@ -27,11 +28,21 @@ Phases, one line each before the last:
    held to ``flash_blocked``, its plain counterpart step for step, and
    reports its achieved TFLOP/s, its share of the bound and the
    exponential floor. D's entry point, ``greedy_gain``, is its own path:
-   counted in a run of its own.
+   counted in a run of its own. A and B also report their device time
+   per launch (``device_ms``, from torch.profiler's trace), which
+   separates the kernel from the host's part of a call, their split plan,
+   and at K 65,536 must beat the matmul form.
 4. ``stable`` — bitwise pair equality of the shape-stable distance form
    across column, k-batch and row-block shapes on the card (and its
    largest relative difference from the CPU).
-5. ``engine`` — ``SimCacheEngine`` with granite-3-2b at full width
+5. ``bigcache`` — a 65,536-key three-level network from
+   ``SimCacheNetwork.from_placement`` (slots by popularity rank) serving
+   16 batches of 256 sampled queries fused and looped: bitwise equal
+   results, mean cost below h_repo, 16 launches of A and 48 of B; then,
+   outside the counted runs, A's served batch and B on each level held
+   against their plain versions at these shapes (split plans of their
+   own).
+6. ``engine`` — ``SimCacheEngine`` with granite-3-2b at full width
    (random weights from a seed) in front of a 100,000-object catalog.
    The main path: cold serving, ``refresh_placement()`` (cascade on the
    card), warm serving and one background ``request_refresh`` →
@@ -41,21 +52,22 @@ Phases, one line each before the last:
    predicted C(A), the looped lookup (kernel B, its own path, counted
    alone) serving the last warm batch as the fused one did, and
    ``calibrate()`` timed once.
-6. ``prefill`` — granite-3-2b at full width, B = 2, S = 2048 (bf16),
+7. ``prefill`` — granite-3-2b at full width, B = 2, S = 2048 (bf16),
    with ``use_flash_attention`` on and then off on the same weights:
    logit agreement, both times, kernel E's launches per flash forward
    (one per layer); and once more in f32 at B = 1, S = 512, where the
    two attentions must agree to f32 rounding.
-7. ``stream`` — ``SimCacheEngine`` at full width with
+8. ``stream`` — ``SimCacheEngine`` at full width with
    ``use_flash_attention=True`` in front of a 20,000-object catalog,
    driven by ``StreamDriver`` (4 Zipf streams): a cold run, a
    ``refresh_placement()``, a warm run whose cadence starts a background
    refresh, and ``drain_refresh()``. Kernel E's and A's launches are
    counted over the phase.
-8. ``launch`` — ``python -m repro_torch.launch.serve`` in a subprocess,
+9. ``launch`` — ``python -m repro_torch.launch.serve`` in a subprocess,
    batch loop and streaming; each must exit 0 and print its final
    ``[serve] … hit-rate`` line.
-9. ``kernels`` — one JSON object with every kernel's numbers.
+10. ``kernels`` — one JSON object with every kernel's numbers; A's and
+   B's entries also carry each of their two shapes (K 448 and 65,536).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script then exits non-zero and prints no result. It
@@ -114,6 +126,38 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, match: str, tries: int = 3) -> dict:
+    """Device time per call of ``fn`` from torch.profiler's trace (its
+    CUDA events, as ``trace_solve.py`` reads them): the kernels whose name
+    contains ``match``, their launches per call, and the memsets beside
+    them, over ``iters`` calls after one warm-up call. Now and then (once
+    in ~60 windows on the card) a window's trace comes back without its
+    device events; a window whose kernel count is not a whole number per
+    call is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        kern = [e for e in dev if match in e.name]
+        if kern and len(kern) % iters == 0:
+            break
+    else:
+        raise RuntimeError(f"the profiler recorded no whole window of "
+                           f"{match} kernels in {tries} tries")
+    mem = [e for e in dev if e.name.startswith("Memset")]
+    span = lambda es: sum(e.time_range.end - e.time_range.start  # noqa
+                          for e in es) / 1e3 / iters
+    return dict(device_ms=span(kern), launches_per_call=len(kern) / iters,
+                memset_ms=span(mem), memsets_per_call=len(mem) / iters)
 
 
 def l2_tolerance(torch, q, keys, d):
@@ -211,12 +255,24 @@ def phase_build():
                 info, dynamic_smem_bytes=LIBRARY.fn(
                     "simcache_flash_tc_smem")(dh))
     sass = _sass_mma_counts(LIBRARY.path("flash.cu"))
+    lookup = {}                        # kernels A and B, per instantiation
+    for name, info in entries.items():
+        m = re.search(r"nn_kernelILi(\d)ELb(\d)ELi(\d+)ELi\d+ELi\d+ELb(\d)E",
+                      name)
+        if m:
+            metric = ("l1", "l2", "l2sq")[int(m[1])]
+            wide = " streamed" if m[4] == "1" else ""
+            lookup[f"{'AB'[m[2] == '0']} {metric} q_tile {m[3]}{wide}"] = info
+    if len(lookup) != 18:              # 3 metrics x (A, B) x 3 tiles
+        raise RuntimeError(f"ptxas reported {len(lookup)} lookup kernel "
+                           f"instantiations, not 18: {sorted(lookup)}")
     log("build", seconds=LIBRARY.build_seconds,
         registers=sorted({int(r) for r in re.findall(
             r"Used (\d+) registers", log_)}),
         spill_bytes=max([int(b) for b in re.findall(
             r"(\d+) bytes spill stores", log_)] or [0]),
         flash_bf16_kernels=dict(sorted(flash_tc.items())),
+        lookup_kernels=dict(sorted(lookup.items())),
         flash_bf16_sass=sass,
         ptxas_log=str(BUILD_DIR / "ptxas.log"))
     if sorted(flash_tc) != sorted(f"Dh{d}" for d in HEAD_DIMS) or (
@@ -268,32 +324,86 @@ def matmul_lookup(torch, q, keys, h_key, meta, h_repo):
             torch.where(use_repo, -1, meta[2, best]))
 
 
-def phase_kernel_a(torch, coords, rng, Q, K):
-    from repro_torch.kernels.knn.knn import fused_lookup_cuda
+def _plan_fields(torch, Q, K, D) -> dict:
+    """The split plan kernels A and B take at this shape on this card."""
+    from repro_torch.kernels.knn.knn import _sm_count, _split_plan
+    plan = _split_plan(Q, K, D, _sm_count(torch.device("cuda")))
+    return dict(q_tile=plan.q_tile, n_splits=plan.n_splits)
+
+
+def hold_fused(torch, q, keys, h_key, meta, h_repo, got) -> dict:
+    """Kernel A's outputs ``got`` (l2, γ = 1, keys segmented by ascending
+    level) against its plain version on the same inputs: every cost
+    within the per-query tolerance, and a differing winner (a key named
+    by its level and slot) only where the plain version sees a near-tie:
+    its own cost at the kernel's key within 2·tol of its min. The fields
+    of the check and ``ok``."""
     from repro_torch.kernels.knn.ref import _dense_ca, fused_lookup_ref
-    q, keys, h_key, meta = _lookup_inputs(torch, coords, Q, K, rng)
-    h_repo = 1000.0
-    args = (q, keys, h_key, meta, "l2", 1.0, h_repo, -1)
-    got = fused_lookup_cuda(*args)
-    ref = fused_lookup_ref(*args)
-    torch.cuda.synchronize()
+    Q, K = q.shape[0], keys.shape[0]
     cost_k, ca_k, lvl_k, slot_k, pay_k = got
-    cost_p, ca_p, lvl_p, slot_p, pay_p = ref
+    cost_p, ca_p, lvl_p, slot_p, pay_p = fused_lookup_ref(
+        q, keys, h_key, meta, "l2", 1.0, h_repo, -1)
     tol = l2_tolerance(torch, q, keys, ca_p) + 2 * U32 * cost_p
     err = (cost_k - cost_p).abs()
-    # a differing winner is allowed only where the plain version sees a
-    # near-tie: its own cost at the kernel's key within 2·tol of its min
     full = torch.where(meta[3][None, :] > 0,
                        _dense_ca(q, keys, "l2", 1.0) + h_key[None, :],
                        torch.full((Q, K), 3.0e38, device=q.device))
-    diff = pay_k != pay_p
+    start = torch.searchsorted(meta[0].contiguous(), torch.arange(
+        int(meta[0].max()) + 1, dtype=torch.int32, device=q.device))
+
+    def key_index(lvl, slot):                  # −1: the repository
+        return torch.where(lvl >= 0, start[lvl.clamp_min(0).long()] + slot,
+                           -1)
+
+    idx_k, idx_p = key_index(lvl_k, slot_k), key_index(lvl_p, slot_p)
+    diff = idx_k != idx_p
     rows = torch.nonzero(diff).reshape(-1)
-    at_k = torch.where(pay_k[rows] >= 0,
-                       full[rows, pay_k[rows].clamp_min(0).long()],
+    at_k = torch.where(idx_k[rows] >= 0,
+                       full[rows, idx_k[rows].clamp_min(0)],
                        torch.full_like(cost_p[rows], h_repo))
     unjustified = int((at_k - cost_p[rows] > 2 * tol[rows]).sum())
-    ok = bool((err <= tol).all()) and unjustified == 0
+    return dict(max_abs_err=float(err.max()),
+                max_rel_err=float((err / cost_p.abs().clamp_min(1e-30))
+                                  .max()),
+                tol_max=float(tol.max()), index_equal=int((~diff).sum()),
+                index_near_tie=int(diff.sum()), unjustified=unjustified,
+                payload_equal_where_key_equal=bool(
+                    (pay_k == pay_p)[~diff].all()),
+                ok=bool((err <= tol).all()) and unjustified == 0
+                and bool((pay_k == pay_p)[~diff].all()))
+
+
+def hold_knn(torch, q, keys, got) -> dict:
+    """Kernel B's outputs ``got`` (l2, γ = 1) against its plain version
+    on the same inputs, with :func:`hold_fused`'s tolerance and near-tie
+    rule. The fields of the check and ``ok``."""
+    from repro_torch.kernels.knn.ref import _dense_ca, knn_ref
+    cost_k, idx_k = got
+    cost_p, idx_p = knn_ref(q, keys, "l2")
+    tol = l2_tolerance(torch, q, keys, cost_p)
+    err = (cost_k - cost_p).abs()
+    diff = idx_k != idx_p
+    rows = torch.nonzero(diff).reshape(-1)
+    full = _dense_ca(q, keys, "l2", 1.0)
+    at_k = full[rows, idx_k[rows].long()]
+    unjustified = int((at_k - cost_p[rows] > 2 * tol[rows]).sum())
+    return dict(max_abs_err=float(err.max()), tol_max=float(tol.max()),
+                index_equal=int((~diff).sum()),
+                index_near_tie=int(diff.sum()), unjustified=unjustified,
+                ok=bool((err <= tol).all()) and unjustified == 0)
+
+
+def phase_kernel_a(torch, coords, rng, Q, K):
+    from repro_torch.kernels.knn.knn import fused_lookup_cuda
+    from repro_torch.kernels.knn.ref import fused_lookup_ref
+    q, keys, h_key, meta = _lookup_inputs(torch, coords, Q, K, rng)
+    h_repo = 1000.0
+    args = (q, keys, h_key, meta, "l2", 1.0, h_repo, -1)
+    held = hold_fused(torch, q, keys, h_key, meta, h_repo,
+                      fused_lookup_cuda(*args))
+    cost_p = fused_lookup_ref(*args)[0]
     ms = cuda_ms(torch, lambda: fused_lookup_cuda(*args), 50)
+    dev = device_ms(torch, lambda: fused_lookup_cuda(*args), 50, "nn_kernel")
     plain = cuda_ms(torch, lambda: fused_lookup_ref(*args), 10)
     lib = matmul_lookup(torch, q, keys, h_key, meta, h_repo)
     lib_ms = cuda_ms(torch, lambda: matmul_lookup(torch, q, keys, h_key,
@@ -301,15 +411,11 @@ def phase_kernel_a(torch, coords, rng, Q, K):
     D = q.shape[1]
     bms, by = bound_ms(4 * (Q * D + K * D + K + 4 * K + 5 * Q),
                        2 * Q * K * D + 5 * Q * K)
-    res = dict(name="fused_lookup", Q=Q, K=K, D=D,
-               max_abs_err=float(err.max()),
-               max_rel_err=float((err / cost_p.abs().clamp_min(1e-30))
-                                 .max()),
-               tol_max=float(tol.max()), index_equal=int((~diff).sum()),
-               index_near_tie=int(diff.sum()), unjustified=unjustified,
-               level_slot_equal_where_payload_equal=bool(
-                   ((lvl_k == lvl_p) & (slot_k == slot_p))[~diff].all()),
-               ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+    ok = held.pop("ok")
+    res = dict(name="fused_lookup", Q=Q, K=K, D=D, **held,
+               **_plan_fields(torch, Q, K, D), ms=ms, **dev,
+               share_of_bound=bms / dev["device_ms"],
+               plain_ms=plain, bound_ms=bms, bound_by=by,
                library="matmul form", library_ms=lib_ms,
                library_max_abs_err=float((lib[0] - cost_p).abs().max()),
                ok=ok)
@@ -324,27 +430,21 @@ def phase_kernel_b(torch, coords, rng, Q, K):
     from repro_torch.kernels.knn.knn import knn_cuda
     from repro_torch.kernels.knn.ref import _dense_ca, knn_ref
     q, keys, _, _ = _lookup_inputs(torch, coords, Q, K, rng)
-    cost_k, idx_k = knn_cuda(q, keys, "l2")
-    cost_p, idx_p = knn_ref(q, keys, "l2")
-    torch.cuda.synchronize()
-    tol = l2_tolerance(torch, q, keys, cost_p)
-    err = (cost_k - cost_p).abs()
-    diff = idx_k != idx_p
-    rows = torch.nonzero(diff).reshape(-1)
+    held = hold_knn(torch, q, keys, knn_cuda(q, keys, "l2"))
+    ok = held.pop("ok")
+    cost_p = knn_ref(q, keys, "l2")[0]
     full = _dense_ca(q, keys, "l2", 1.0)
-    at_k = full[rows, idx_k[rows].long()]
-    unjustified = int((at_k - cost_p[rows] > 2 * tol[rows]).sum())
-    ok = bool((err <= tol).all()) and unjustified == 0
     ms = cuda_ms(torch, lambda: knn_cuda(q, keys, "l2"), 50)
+    dev = device_ms(torch, lambda: knn_cuda(q, keys, "l2"), 50, "nn_kernel")
     plain = cuda_ms(torch, lambda: knn_ref(q, keys, "l2"), 10)
     lib_ms = cuda_ms(torch, lambda: _dense_ca(q, keys, "l2", 1.0).min(1),
                      10)
     D = q.shape[1]
     bms, by = bound_ms(4 * (Q * D + K * D + 2 * Q), 2 * Q * K * D + 4 * Q * K)
-    res = dict(name="knn", Q=Q, K=K, D=D, max_abs_err=float(err.max()),
-               tol_max=float(tol.max()), index_equal=int((~diff).sum()),
-               index_near_tie=int(diff.sum()), unjustified=unjustified,
-               ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+    res = dict(name="knn", Q=Q, K=K, D=D, **held,
+               **_plan_fields(torch, Q, K, D), ms=ms, **dev,
+               share_of_bound=bms / dev["device_ms"],
+               plain_ms=plain, bound_ms=bms, bound_by=by,
                library="matmul form", library_ms=lib_ms,
                library_max_abs_err=float(
                    (full.min(1).values - cost_p).abs().max()),
@@ -416,6 +516,100 @@ def phase_stable(torch, coords):
         ((cpu - full.cpu()).abs() / cpu.abs().clamp_min(1e-30)).max()))
     if not all(checks.values()):
         raise RuntimeError(f"shape-stable distances differ: {checks}")
+
+
+BIGCACHE_SLOTS = (4096, 16_384, 45_056)    # 65,536 keys in all
+BIGCACHE_H = (0.0, 15.0, 150.0)
+
+
+def phase_bigcache(torch, cat, dem):
+    """A large cache network on the data plane: three levels of 4,096 /
+    16,384 / 45,056 slots (65,536 keys, the shape A and B are timed at)
+    at h = 0 / 15 / 150 and h_repo 1000, filled by Zipf(0.8) popularity
+    rank (the most requested objects at the cheapest level) and built by
+    ``SimCacheNetwork.from_placement`` — a solve at this size would take
+    hours. It serves 16 batches of 256 ``Demand.sample`` queries fused
+    (kernel A, one launch a batch) and again looped (kernel B, one launch
+    a level and batch), each run with the launch counts zeroed just
+    before and read just after. The two must give bitwise equal
+    ``LookupResult``s, the mean cost must be below h_repo, and the
+    launches must be 16 of A and 48 of B. Outside the counted runs the
+    kernels are held against their plain versions at these shapes (the
+    split plans no other phase runs): the first batch's served fused
+    result against ``fused_lookup_ref`` on the network's layout, and B on
+    each level's keys against ``knn_ref``, with the ``kernel`` phase's
+    tolerance and near-tie rule."""
+    from repro_torch.core.simcache import SimCacheNetwork
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.knn.knn import knn_cuda
+    h_repo, n_batches, batch = 1000.0, 16, 256
+    popularity = np.asarray(dem.lam).reshape(-1, cat.n).sum(0)
+    order = np.argsort(-popularity, kind="stable")
+    slots = order[:sum(BIGCACHE_SLOTS)].astype(np.int64)
+    slot_cache = np.repeat(np.arange(3), BIGCACHE_SLOTS)
+    net = SimCacheNetwork.from_placement(cat.coords, slots, slot_cache,
+                                         hs=BIGCACHE_H, h_repo=h_repo)
+    looped = dataclasses.replace(net, fused=False)
+    rng = np.random.default_rng(5)
+    queries = [torch.as_tensor(cat.coords[dem.sample(batch, rng)[0]],
+                               device="cuda") for _ in range(n_batches)]
+    net.lookup(queries[0])                        # layout and warm-up
+    looped.lookup(queries[0])
+    torch.cuda.synchronize()
+
+    def serve(network):
+        reset_launch_counts()                     # this path's run
+        out, secs = [], []
+        for q in queries:
+            t = time.perf_counter()
+            out.append(network.lookup(q))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        return out, launch_counts(), secs
+
+    fused, f_counts, f_secs = serve(net)
+    loop, l_counts, l_secs = serve(looped)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    fields = ("cost", "approx_cost", "level", "slot", "payload", "hit")
+    equal = all(torch.equal(bits(getattr(a, f)), bits(getattr(b, f)))
+                for a, b in zip(fused, loop) for f in fields)
+    cost = torch.cat([r.cost for r in fused])
+    level = torch.cat([r.level for r in fused])
+    f0 = fused[0]
+    held = {"A": hold_fused(torch, queries[0], *net.fused_layout(), h_repo,
+                            (f0.cost, f0.approx_cost, f0.level, f0.slot,
+                             f0.payload))}
+    for j, lv in enumerate(net.levels):
+        held[f"B level {j}"] = dict(
+            hold_knn(torch, queries[0], lv.keys,
+                     knn_cuda(queries[0], lv.keys, "l2")),
+            K=lv.keys.shape[0],
+            **_plan_fields(torch, batch, lv.keys.shape[0], cat.dim))
+    held["A"].update(K=sum(BIGCACHE_SLOTS), **_plan_fields(
+        torch, batch, sum(BIGCACHE_SLOTS), cat.dim))
+    res = dict(levels=list(BIGCACHE_SLOTS), h=list(BIGCACHE_H),
+               h_repo=h_repo, keys=sum(BIGCACHE_SLOTS), catalog=cat.n,
+               dim=cat.dim, batches=n_batches, batch=batch,
+               fused_equals_looped_bitwise=equal,
+               mean_cost=float(cost.mean()),
+               hit_rate=float((level >= 0).float().mean()),
+               level_share=[float((level == j).float().mean())
+                            for j in range(3)],
+               fused_launches=f_counts, looped_launches=l_counts,
+               fused_ms_per_batch=float(np.mean(f_secs)) * 1e3,
+               looped_ms_per_batch=float(np.mean(l_secs)) * 1e3,
+               held_against_plain=held)
+    log("bigcache", **res)
+    checks = [equal, res["mean_cost"] < h_repo,
+              all(h["ok"] for h in held.values()),
+              f_counts["fused_lookup"] == n_batches, f_counts["knn"] == 0,
+              l_counts["knn"] == 3 * n_batches, l_counts["fused_lookup"] == 0]
+    if not all(checks):
+        raise RuntimeError(f"bigcache phase failed its checks: {checks}")
+    return res
 
 
 def phase_engine(torch, cat, dem):
@@ -903,15 +1097,20 @@ def main() -> int:
     dem = demand_api.zipf(cat, alpha=0.8, seed=0)
     rng = np.random.default_rng(0)
     a = phase_kernel_a(torch, cat.coords, rng, 256, 448)
-    phase_kernel_a(torch, cat.coords, rng, 256, 65536)
+    a_big = phase_kernel_a(torch, cat.coords, rng, 256, 65536)
     for q_bucket in (8, 16, 32, 64):             # the stream's buckets
         phase_kernel_a(torch, cat.coords, rng, q_bucket, 448)
     b = phase_kernel_b(torch, cat.coords, rng, 256, 448)
-    phase_kernel_b(torch, cat.coords, rng, 256, 65536)
+    b_big = phase_kernel_b(torch, cat.coords, rng, 256, 65536)
+    for r in (a_big, b_big):
+        if not r["ms"] < r["library_ms"]:
+            raise RuntimeError(f"kernel {r['name']} at K 65,536 is slower "
+                               f"than the matmul form: {r}")
     c = phase_kernel_c(torch, cat.coords, dem.lam)
     d = phase_kernel_d(torch, cat.coords, dem.lam)
     e = phase_kernel_e(torch, clock_hz)
     phase_stable(torch, cat.coords)
+    phase_bigcache(torch, cat, dem)
     counts = phase_engine(torch, cat, dem)
     gc.collect()                                  # the engine's model
     torch.cuda.empty_cache()
@@ -935,14 +1134,21 @@ def main() -> int:
                "flash_attention": (
                    "src/repro_torch/kernels/csrc/flash.cu",
                    "src/repro/kernels/flash_attention/flash.py:36")}
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+    shapes = {"fused_lookup": (a, a_big), "knn": (b, b_big)}
     kernels = []
     for r in (a, b, c, d, e):
         src, repl = sources[r["name"]]
         kernels.append(dict(
             name=r["name"], route="cuda", source=src, replaces=repl,
-            launches=counts[r["name"]], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            launches=counts[r["name"]], **{k: r[k] for k in timed}))
+        if r["name"] in shapes:                   # K 448, then K 65,536
+            kernels[-1]["device_ms"] = r["device_ms"]
+            kernels[-1]["shapes"] = [
+                dict(Q=x["Q"], K=x["K"], D=x["D"], device_ms=x["device_ms"],
+                     **{k: x[k] for k in timed})
+                for x in shapes[r["name"]]]
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

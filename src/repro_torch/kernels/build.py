@@ -35,9 +35,11 @@ _L = ctypes.c_longlong
 # C signatures of the launchers (every one returns its cudaError_t)
 SIGNATURES = {
     "knn.cu": {
-        "simcache_knn": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
+        "simcache_knn": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _I, _I, _I,
+                         _I, _P, _P],
         "simcache_fused_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                                  _I, _I, _P, _P, _P, _P, _P, _P],
+                                  _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _P, _P],
     },
     "gains.cu": {
         "simcache_gains": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

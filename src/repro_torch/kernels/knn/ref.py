@@ -106,3 +106,73 @@ def fused_lookup_ref(queries: torch.Tensor, keys: torch.Tensor,
             torch.where(use_repo, repo_level, meta[0, best]).to(i32),
             torch.where(use_repo, 0, meta[1, best]).to(i32),
             torch.where(use_repo, -1, meta[2, best]).to(i32))
+
+
+def pad_to_shards(keys: torch.Tensor, h_key: torch.Tensor,
+                  meta: torch.Tensor, n_shards: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pad the segmented key tensor so the key axis divides ``n_shards``.
+
+    Padding keys are all-zero with h == 0, valid == 0 and payload == −1,
+    so they are masked and contiguous balanced chunks never perturb a
+    distance."""
+    pad = (-keys.shape[0]) % n_shards
+    if pad:
+        keys = torch.cat([keys, keys.new_zeros((pad, keys.shape[1]))])
+        h_key = torch.cat([h_key, h_key.new_zeros((pad,))])
+        mpad = meta.new_zeros((4, pad))
+        mpad[2] = -1
+        meta = torch.cat([meta, mpad], dim=1)
+    return keys, h_key, meta
+
+
+def reduce_shard_minima(cost_s: torch.Tensor, ca_s: torch.Tensor,
+                        lvl_s: torch.Tensor, slot_s: torch.Tensor,
+                        pay_s: torch.Tensor, h_repo: float,
+                        repo_level: int = -1, fold_repo: bool = True
+                        ) -> tuple[torch.Tensor, ...]:
+    """Reduce per-shard (n_shards, B) lookup minima to the global winner.
+
+    Lexicographic: the minimum cost, ties to the lowest shard
+    (``torch.argmin`` keeps the first minimum). Shards are contiguous
+    chunks of the concatenated key tensor in order, so (shard, index in
+    shard) order is concatenated-index order and the tie-break equals the
+    unsharded lookup's. The repository is folded once here, on a strict
+    ``<``, never inside a shard; ``fold_repo=False`` leaves it out (the
+    shards' own no-key result, (+INF, 0, repo_level, 0, −1), then stands).
+    This is the plain version of kernel A's and B's cross-split merge."""
+    best = torch.argmin(cost_s, dim=0)
+    take = lambda x: x.gather(0, best[None, :])[0]     # noqa: E731
+    bcost, bca = take(cost_s), take(ca_s)
+    blvl, bslot, bpay = take(lvl_s), take(slot_s), take(pay_s)
+    i32 = torch.int32
+    if not fold_repo:
+        return bcost, bca, blvl.to(i32), bslot.to(i32), bpay.to(i32)
+    use_repo = h_repo < bcost
+    return (torch.where(use_repo, torch.full_like(bcost, h_repo), bcost),
+            torch.where(use_repo, torch.zeros_like(bca), bca),
+            torch.where(use_repo, repo_level, blvl).to(i32),
+            torch.where(use_repo, 0, bslot).to(i32),
+            torch.where(use_repo, -1, bpay).to(i32))
+
+
+def sharded_fused_lookup_ref(queries: torch.Tensor, keys: torch.Tensor,
+                             h_key: torch.Tensor, meta: torch.Tensor,
+                             n_shards: int, metric: str = "l2",
+                             gamma: float = 1.0, h_repo: float = 0.0,
+                             repo_level: int = -1, fold_repo: bool = True
+                             ) -> tuple[torch.Tensor, ...]:
+    """The fused lookup over ``n_shards`` contiguous balanced chunks of
+    the (padded) key tensor: each chunk's minimum with ``fold_repo=False``,
+    then :func:`reduce_shard_minima`. It equals :func:`fused_lookup_ref`
+    bit for bit at every shard count."""
+    keys, h_key, meta = pad_to_shards(keys, h_key, meta, n_shards)
+    S = keys.shape[0] // n_shards
+    parts = [fused_lookup_ref(
+        queries, keys[s * S:(s + 1) * S], h_key[s * S:(s + 1) * S],
+        meta[:, s * S:(s + 1) * S], metric=metric, gamma=gamma,
+        h_repo=h_repo, repo_level=repo_level, fold_repo=False)
+        for s in range(n_shards)]
+    stk = [torch.stack([p[i] for p in parts]) for i in range(5)]
+    return reduce_shard_minima(*stk, h_repo=h_repo, repo_level=repo_level,
+                               fold_repo=fold_repo)

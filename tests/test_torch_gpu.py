@@ -55,7 +55,8 @@ def _tol(q, k, d, metric):
 
 @pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
 @pytest.mark.parametrize("shape", [(1, 1, 1), (7, 3, 2), (9, 130, 37),
-                                   (300, 1000, 100), (64, 129, 3)])
+                                   (300, 1000, 100), (64, 129, 3),
+                                   (300, 20_000, 100)])
 @pytest.mark.parametrize("gamma", [1.0, 0.5])
 def test_knn_kernel_matches_plain(cuda, metric, shape, gamma):
     Q, K, D = shape
@@ -84,9 +85,10 @@ def test_knn_kernel_ties_to_lowest_index(cuda):
 
 @pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
 @pytest.mark.parametrize("fold_repo", [True, False])
-def test_fused_kernel_matches_plain(cuda, metric, fold_repo):
+@pytest.mark.parametrize("shape", [(77, 530, 19), (300, 24_000, 100)])
+def test_fused_kernel_matches_plain(cuda, metric, fold_repo, shape):
     g = torch.Generator().manual_seed(3)
-    Q, K, D = 77, 530, 19
+    Q, K, D = shape
     q = (torch.randn(Q, D, generator=g) * 2).to(cuda)
     k = (torch.randn(K, D, generator=g) * 2).to(cuda)
     k[7] = 1e15                                     # a sentinel key
@@ -97,10 +99,12 @@ def test_fused_kernel_matches_plain(cuda, metric, fold_repo):
                         valid]).int().to(cuda)
     kw = dict(metric=metric, gamma=1.0, h_repo=4.0, repo_level=-1,
               fold_repo=fold_repo)
+    n0 = fused_lookup_cuda.launches
     got = fused_lookup_cuda(q, k, h, meta, **kw)
     ref = fused_lookup_ref(q, k, h, meta, **kw)
     torch.cuda.synchronize()
-    tol = _tol(q, k[1:], ref[1], metric)
+    assert fused_lookup_cuda.launches == n0 + 1
+    tol = _tol(q, k[valid.to(cuda) > 0], ref[1], metric)
     assert bool(((got[0] - ref[0]).abs() <= tol).all())
     same = got[4] == ref[4]
     assert float(same.float().mean()) > 0.95
@@ -113,6 +117,191 @@ def test_fused_kernel_matches_plain(cuda, metric, fold_repo):
     zr = fused_lookup_ref(q, k, h, meta0, **kw)
     for a, b in zip(z, zr):
         assert torch.equal(a, b)
+
+
+def _segmented(cuda, Q, K, D, seed):
+    """Catalog-like queries and a three-level key tensor (h 0 / 15 / 150,
+    payload = concatenated index, every key valid) on the card."""
+    g = torch.Generator().manual_seed(seed)
+    q = (torch.randn(Q, D, generator=g) * 3).to(cuda)
+    k = (torch.randn(K, D, generator=g) * 3).to(cuda)
+    lvl = torch.zeros(K, dtype=torch.int32)
+    lvl[K // 7:] = 1
+    lvl[3 * K // 7:] = 2
+    h = torch.tensor([0.0, 15.0, 150.0])[lvl.long()]
+    slot = torch.arange(K, dtype=torch.int32)
+    meta = torch.stack([lvl, slot, slot, torch.ones(K, dtype=torch.int32)])
+    return q, k, h.to(cuda), meta.to(cuda)
+
+
+def _splits(Q, K, D):
+    """Key ranges of the plan the wrappers take on this card."""
+    from repro_torch.kernels.knn.knn import _sm_count, _split_plan
+    return _split_plan(Q, K, D, _sm_count(torch.device("cuda"))).ranges()
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _assert_bitwise(a, b):
+    for x, y in zip(a, b):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
+@pytest.mark.parametrize("K", [448, 65_536])
+def test_lookup_kernels_bitwise_independent_of_batch(cuda, metric, K):
+    """A row's outputs do not depend on the batch around it: Q 1, 8 and
+    256 take different query tiles and split plans, and give the same
+    bits in every output of kernels A and B."""
+    q, k, h, meta = _segmented(cuda, 256, K, 100, K)
+    kw = dict(metric=metric, h_repo=100.0, repo_level=-1)
+    full_a = fused_lookup_cuda(q, k, h, meta, **kw)
+    full_b = knn_cuda(q, k, metric)
+    plans = {len(_splits(Q, K, 100)) for Q in (1, 8, 256)}
+    if K == 65_536:
+        assert max(plans) > 1
+    for Q in (1, 8):
+        for s in (0, 100, 256 - Q):
+            na, nb = fused_lookup_cuda.launches, knn_cuda.launches
+            part_a = fused_lookup_cuda(q[s:s + Q], k, h, meta, **kw)
+            part_b = knn_cuda(q[s:s + Q], k, metric)
+            assert fused_lookup_cuda.launches == na + 1
+            assert knn_cuda.launches == nb + 1
+            _assert_bitwise(part_a, [x[s:s + Q] for x in full_a])
+            _assert_bitwise(part_b, [x[s:s + Q] for x in full_b])
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
+def test_lookup_ties_across_split_boundaries(cuda, metric):
+    """The same key stored at three indices in three different splits:
+    the lowest index wins in A and in B. In A, equal costs from keys of
+    different levels resolve to the lowest index as well."""
+    Q, K, D = 64, 65_536, 100
+    q, k, h, meta = _segmented(cuda, Q, K, D, 11)
+    ranges = _splits(Q, K, D)
+    assert len(ranges) >= 3
+    picks = [ranges[1][0] + 5, ranges[len(ranges) // 2][0] + 77,
+             ranges[-1][1] - 1]
+    for i in picks:
+        k[i] = q[0]
+    na, nb = fused_lookup_cuda.launches, knn_cuda.launches
+    _, idx = knn_cuda(q, k, metric)
+    assert int(idx[0]) == picks[0]
+    # A: the copies sit in levels 1 and 2 (h 15 and 150); give them equal
+    # h so their costs tie across levels
+    h2 = h.clone()
+    h2[picks] = 7.0
+    got = fused_lookup_cuda(q, k, h2, meta, metric=metric, h_repo=1e9)
+    assert int(got[4][0]) == picks[0]
+    assert len({int(meta[0, i]) for i in picks}) >= 2
+    assert fused_lookup_cuda.launches == na + 1
+    assert knn_cuda.launches == nb + 1
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
+def test_lookup_masks_a_wholly_invalid_split(cuda, metric):
+    """Every key of one split (and of the first) is a sentinel (1e15, one
+    NaN row) with valid 0: no winner comes from them, and the outputs are
+    bitwise those of the same call with those rows zeroed."""
+    Q, K, D = 256, 65_536, 100
+    q, k, h, meta = _segmented(cuda, Q, K, D, 12)
+    ranges = _splits(Q, K, D)
+    dead = [ranges[0], ranges[len(ranges) // 2]]
+    meta = meta.clone()
+    k_zero = k.clone()
+    for a, b in dead:
+        k[a:b] = 1e15
+        k[a + 3] = float("nan")
+        k_zero[a:b] = 0.0
+        meta[3, a:b] = 0
+        meta[2, a:b] = -1
+    kw = dict(metric=metric, h_repo=1e9, repo_level=-1)
+    got = fused_lookup_cuda(q, k, h, meta, **kw)
+    _assert_bitwise(got, fused_lookup_cuda(q, k_zero, h, meta, **kw))
+    pay = got[4]
+    assert bool((pay >= 0).all())
+    for a, b in dead:
+        assert not bool(((pay >= a) & (pay < b)).any())
+    ref = fused_lookup_ref(q, k_zero, h, meta, **kw)
+    tol = _tol(q, k_zero, ref[1], metric)
+    assert bool(((got[0] - ref[0]).abs() <= tol).all())
+
+
+def test_lookup_no_valid_key_without_the_fold(cuda):
+    """No valid key at all at K 65,536 with ``fold_repo=False``: every
+    query gets (3e38, 0, repo_level, 0, −1) exactly."""
+    q, k, h, meta = _segmented(cuda, 256, 65_536, 100, 13)
+    meta = meta.clone()
+    meta[3] = 0
+    cost, ca, lvl, slot, pay = fused_lookup_cuda(
+        q, k, h, meta, metric="l2", h_repo=5.0, repo_level=-7,
+        fold_repo=False)
+    assert bool((cost == torch.tensor(3.0e38, device=cuda)).all())
+    assert bool((ca == 0).all()) and bool((lvl == -7).all())
+    assert bool((slot == 0).all()) and bool((pay == -1).all())
+
+
+@pytest.mark.parametrize("K", [448, 20_000])
+@pytest.mark.parametrize("D", [3, 19, 100, 130])
+def test_lookup_staging_paths(cuda, D, K):
+    """D 3, 19 and 130 (D % 4 != 0) take the 4-byte staging path, D 100
+    the 16-byte one; a key view 4 bytes off a 16-byte boundary takes the
+    4-byte path and gives the same bits as an aligned copy of the same
+    keys."""
+    Q = 77
+    q, k, h, meta = _segmented(cuda, Q, K, D, D + K)
+    kw = dict(metric="l2", h_repo=100.0, repo_level=-1)
+    got = fused_lookup_cuda(q, k, h, meta, **kw)
+    ref = fused_lookup_ref(q, k, h, meta, **kw)
+    tol = _tol(q, k, ref[1], "l2")
+    assert bool(((got[0] - ref[0]).abs() <= tol).all())
+    cb, ib = knn_cuda(q, k, "l2")
+    cp, _ = knn_ref(q, k, "l2")
+    assert bool(((cb - cp).abs() <= _tol(q, k, cp, "l2")).all())
+    flat = torch.empty(K * D + 1, device=cuda)
+    view = flat[1:].view(K, D)
+    view.copy_(k)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    _assert_bitwise(fused_lookup_cuda(q, view, h, meta, **kw), got)
+    _assert_bitwise(knn_cuda(q, view, "l2"), (cb, ib))
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
+@pytest.mark.parametrize("D", [5000, 6000, 8190, 8192])
+def test_lookup_wide_rows(cuda, metric, D):
+    """Rows too wide for a resident query tile (D 6000, 8190, 8192) stream
+    it through the key ring; D 5000 stays resident. On small-integer
+    coordinates every sum is exact in f32, so both kernels must give the
+    plain version's outputs bit for bit, ties to the lowest index
+    included; a Q 1 call gives the same bits as its row of the batch."""
+    from repro_torch.kernels.knn.knn import _sm_count, _split_plan
+    Q, K = 77, 3000
+    g = torch.Generator().manual_seed(D)
+    q = torch.randint(-2, 3, (Q, D), generator=g).float().to(cuda)
+    k = torch.randint(-2, 3, (K, D), generator=g).float().to(cuda)
+    k[100] = k[2000] = q[5]                   # a tie across key tiles
+    lvl = (torch.arange(K) * 3 // K).int()
+    h = (lvl * 8).float().to(cuda)
+    valid = (torch.arange(K) % 13 != 4).int()
+    meta = torch.stack([lvl, torch.arange(K).int(),
+                        torch.where(valid > 0, torch.arange(K), -1).int(),
+                        valid]).to(cuda)
+    plan = _split_plan(Q, K, D, _sm_count(q.device))
+    assert plan.q_stream is (D > 5000)
+    kw = dict(metric=metric, h_repo=1e9, repo_level=-1)
+    na, nb = fused_lookup_cuda.launches, knn_cuda.launches
+    got_a = fused_lookup_cuda(q, k, h, meta, **kw)
+    got_b = knn_cuda(q, k, metric)
+    assert fused_lookup_cuda.launches == na + 1
+    assert knn_cuda.launches == nb + 1
+    _assert_bitwise(got_a, fused_lookup_ref(q, k, h, meta, **kw))
+    _assert_bitwise(got_b, knn_ref(q, k, metric))
+    assert int(got_b[1][5]) == 100 and int(got_a[4][5]) == 100
+    _assert_bitwise(fused_lookup_cuda(q[5:6], k, h, meta, **kw),
+                    [x[5:6] for x in got_a])
+    _assert_bitwise(knn_cuda(q[5:6], k, metric), [x[5:6] for x in got_b])
 
 
 @pytest.mark.parametrize("metric", ["l1", "l2"])
