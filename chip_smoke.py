@@ -9,8 +9,8 @@ Phases, one line each before the last:
    power limit line.
 2. ``build`` — seconds to build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
-   parallel); for each instantiation of kernels A and B, ptxas's
-   registers and spills; for kernel E's bf16 (tensor-core)
+   parallel); for each instantiation of kernels A and B, and of kernels
+   C and D, ptxas's registers and spills; for kernel E's bf16 (tensor-core)
    instantiations, the same, their dynamic shared memory, and where
    ``cuobjdump`` exists the ``HGMMA`` (and ``HMMA``) instructions in
    their SASS, which must be there.
@@ -28,10 +28,13 @@ Phases, one line each before the last:
    held to ``flash_blocked``, its plain counterpart step for step, and
    reports its achieved TFLOP/s, its share of the bound and the
    exponential floor. D's entry point, ``greedy_gain``, is its own path:
-   counted in a run of its own. A and B also report their device time
-   per launch (``device_ms``, from torch.profiler's trace), which
-   separates the kernel from the host's part of a call, their split plan,
-   and at K 65,536 must beat the matmul form.
+   counted in a run of its own. A, B, C and D also report their device
+   time per launch (``device_ms``, from torch.profiler's trace), which
+   separates the kernel from the host's part of a call, and their plan;
+   A and B at K 65,536 must beat the matmul form. C is held at the
+   engine's R = O = 10⁵ and the stream phase's 20,000; its columns for a
+   ragged slice of the candidates must be those of the full call bit for
+   bit, and D must equal C bit for bit on equal H rows.
 4. ``stable`` — bitwise pair equality of the shape-stable distance form
    across column, k-batch and row-block shapes on the card (and its
    largest relative difference from the CPU).
@@ -67,7 +70,8 @@ Phases, one line each before the last:
    batch loop and streaming; each must exit 0 and print its final
    ``[serve] … hit-rate`` line.
 10. ``kernels`` — one JSON object with every kernel's numbers; A's and
-   B's entries also carry each of their two shapes (K 448 and 65,536).
+   B's entries also carry each of their two shapes (K 448 and 65,536),
+   C's its two (R = O = 10⁵ and 20,000).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script then exits non-zero and prints no result. It
@@ -266,6 +270,16 @@ def phase_build():
     if len(lookup) != 18:              # 3 metrics x (A, B) x 3 tiles
         raise RuntimeError(f"ptxas reported {len(lookup)} lookup kernel "
                            f"instantiations, not 18: {sorted(lookup)}")
+    gain = {}                          # kernels C and D, per instantiation
+    for name, info in entries.items():
+        m = re.search(r"gains_kernelILi(\d)ELb(\d)ELi(\d)ELb(\d)E", name)
+        if m:
+            metric = ("l1", "l2", "l2sq")[int(m[1])]
+            wide = " streamed" if m[4] == "1" else ""
+            gain[f"{'CD'[int(m[2])]} {metric} J{m[3]}{wide}"] = info
+    if len(gain) != 24:                # 3 metrics x (C, D) x 4 variants
+        raise RuntimeError(f"ptxas reported {len(gain)} gain kernel "
+                           f"instantiations, not 24: {sorted(gain)}")
     log("build", seconds=LIBRARY.build_seconds,
         registers=sorted({int(r) for r in re.findall(
             r"Used (\d+) registers", log_)}),
@@ -273,6 +287,7 @@ def phase_build():
             r"(\d+) bytes spill stores", log_)] or [0]),
         flash_bf16_kernels=dict(sorted(flash_tc.items())),
         lookup_kernels=dict(sorted(lookup.items())),
+        gain_kernels=dict(sorted(gain.items())),
         flash_bf16_sass=sass,
         ptxas_log=str(BUILD_DIR / "ptxas.log"))
     if sorted(flash_tc) != sorted(f"Dh{d}" for d in HEAD_DIMS) or (
@@ -456,9 +471,22 @@ def phase_kernel_b(torch, coords, rng, Q, K):
     return res
 
 
+def _gain_plan_fields(torch, O, D, I, J, per_request_h) -> dict:
+    from repro_torch.kernels.knn.gains import _gain_plan
+    plan = _gain_plan(O, D, I, J, per_request_h)
+    return dict(y_stream=plan.y_stream,
+                j_width=plan.j_width, blocks=len(plan.tiles()))
+
+
+# a ragged slice of the candidates (tile-misaligned at both ends)
+GAIN_SLICE = (1001, 77_777)
+
+
 def phase_kernel_c(torch, coords, lam_np):
-    """Kernel C at the engine's first GREEDY seed: R = O = catalog,
-    I = 1, J = 3, cur = h_repo everywhere."""
+    """Kernel C at a GREEDY seed of a catalog: R = O = catalog, I = 1,
+    J = 3, cur = h_repo everywhere (the engine's 10⁵ catalog, and the
+    stream phase's 20,000). Also the sharding property: C on a ragged
+    slice of the candidates gives the full call's columns bit for bit."""
     from repro_torch.kernels.knn.gains import _gains_tiles, gains_cuda
     dev = torch.device("cuda")
     x = torch.as_tensor(coords, device=dev)
@@ -467,14 +495,20 @@ def phase_kernel_c(torch, coords, lam_np):
     H = torch.tensor([[0.0, 15.0, 150.0]], device=dev)
     got = gains_cuda(x, x, lam, cur, H, "l2")
     ref = _gains_tiles(x, x, lam, cur, H, "l2", 1.0).T
+    a, b = (min(v, x.shape[0]) for v in GAIN_SLICE)
+    sliced = bool(torch.equal(gains_cuda(x, x[a:b], lam, cur, H, "l2"),
+                              got[:, a:b]))
     torch.cuda.synchronize()
     # each term λ_r·relu(·) moves by at most λ_r times the C_a tolerance
     # of its pair (l2_tolerance, summed per candidate in tiles), plus the
     # two f32 sums over R terms: 1e-4 relative (~ sqrt(R)·eps with margin)
     err = (got - ref).abs()
     tol = gain_tolerance(torch, x, lam) + 1e-4 * ref.abs()
-    ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
-    ms = cuda_ms(torch, lambda: gains_cuda(x, x, lam, cur, H, "l2"), 3)
+    ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all()) \
+        and sliced
+    call = lambda: gains_cuda(x, x, lam, cur, H, "l2")  # noqa: E731
+    ms = cuda_ms(torch, call, 3)
+    dev_t = device_ms(torch, call, 3, "gains_kernel")
     plain = cuda_ms(torch, lambda: _gains_tiles(x, x, lam, cur, H, "l2",
                                                 1.0), 1, warmup=0)
     R, D = x.shape
@@ -482,14 +516,17 @@ def phase_kernel_c(torch, coords, lam_np):
     bms, by = bound_ms(4 * (2 * R * D + 2 * I * R + I * J + J * R),
                        2 * R * R * D + R * R * (3 + 3 * I * J))
     res = dict(name="placement_gains", R=R, O=R, D=D, I=I, J=J,
+               **_gain_plan_fields(torch, R, D, I, J, False),
                max_abs_err=float(err.max()),
                max_rel_err=float((err / ref.abs().clamp_min(1e-30)).max()),
-               tol_max=float(tol.max()), ms=ms, plain_ms=plain, bound_ms=bms,
-               bound_by=by, library_ms=None, ok=ok)
+               tol_max=float(tol.max()), slice=[a, b],
+               slice_bitwise=sliced, ms=ms, **dev_t,
+               share_of_bound=bms / dev_t["device_ms"], plain_ms=plain,
+               bound_ms=bms, bound_by=by, library_ms=None, ok=ok)
     log("kernel", **res)
     if not ok:
-        raise RuntimeError(f"kernel C disagrees with its plain version: "
-                           f"{res}")
+        raise RuntimeError(f"kernel C disagrees with its plain version or "
+                           f"with its own full call: {res}")
     return res
 
 
@@ -837,7 +874,7 @@ def phase_kernel_d(torch, coords, lam_np):
     (0, 15, 150). Tolerance as kernel C's (each term moves by at most
     λ_r times its pair's C_a tolerance, plus 1e-4 relative for the two
     f32 sums over R). On these inputs D computes C's function at I = 1,
-    in C's order, so the two are compared as well. Then the entry point,
+    in C's order, so the two must agree bit for bit. Then the entry point,
     ``greedy_gain``, runs once with the launch counts zeroed: D's path."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.gain import gain_cuda, gain_ref, greedy_gain
@@ -856,7 +893,9 @@ def phase_kernel_d(torch, coords, lam_np):
     err = (got - ref).abs()
     tol = gain_tolerance(torch, x, lam[None]) + 1e-4 * ref.abs()
     ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
-    ms = cuda_ms(torch, lambda: gain_cuda(x, x, lam, cur, hr, "l2"), 3)
+    call = lambda: gain_cuda(x, x, lam, cur, hr, "l2")  # noqa: E731
+    ms = cuda_ms(torch, call, 3)
+    dev_t = device_ms(torch, call, 3, "gains_kernel")
     plain = cuda_ms(torch, lambda: gain_ref(x, x, lam, cur, hr, "l2"), 1,
                     warmup=0)
     reset_launch_counts()                        # D's own path
@@ -868,17 +907,18 @@ def phase_kernel_d(torch, coords, lam_np):
     bms, by = bound_ms(4 * (2 * R * D + 2 * R + R * J + J * R),
                        2 * R * R * D + R * R * (3 + 3 * J))
     res = dict(name="greedy_gain", R=R, O=R, D=D, J=J,
+               **_gain_plan_fields(torch, R, D, 1, J, True),
                max_abs_err=float(err.max()),
                max_rel_err=float((err / ref.abs().clamp_min(1e-30)).max()),
                tol_max=float(tol.max()),
                vs_kernel_c_max_abs_diff=float((got - c).abs().max()),
                vs_kernel_c_bitwise=bool(torch.equal(got, c)),
                entry_point_shape=list(out.shape), launches=launches,
-               ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+               ms=ms, **dev_t, share_of_bound=bms / dev_t["device_ms"],
+               plain_ms=plain, bound_ms=bms, bound_by=by,
                library_ms=None, ok=ok)
     log("kernel", **res)
-    if not ok or launches != 1 or \
-            not torch.allclose(got, c, rtol=1e-6, atol=1e-3):
+    if not ok or launches != 1 or not res["vs_kernel_c_bitwise"]:
         raise RuntimeError(f"kernel D disagrees: {res}")
     return res
 
@@ -1107,6 +1147,10 @@ def main() -> int:
             raise RuntimeError(f"kernel {r['name']} at K 65,536 is slower "
                                f"than the matmul form: {r}")
     c = phase_kernel_c(torch, cat.coords, dem.lam)
+    # the stream phase's catalog and its first stream's demand
+    scat = catalog_api.embedding_catalog(n=20_000, dim=100, seed=1)
+    c_stream = phase_kernel_c(torch, scat.coords,
+                              demand_api.zipf(scat, alpha=1.0, seed=1).lam)
     d = phase_kernel_d(torch, cat.coords, dem.lam)
     e = phase_kernel_e(torch, clock_hz)
     phase_stable(torch, cat.coords)
@@ -1136,17 +1180,20 @@ def main() -> int:
                    "src/repro/kernels/flash_attention/flash.py:36")}
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-    shapes = {"fused_lookup": (a, a_big), "knn": (b, b_big)}
+    shapes = {"fused_lookup": (a, a_big), "knn": (b, b_big),
+              "placement_gains": (c, c_stream)}
     kernels = []
     for r in (a, b, c, d, e):
         src, repl = sources[r["name"]]
         kernels.append(dict(
             name=r["name"], route="cuda", source=src, replaces=repl,
             launches=counts[r["name"]], **{k: r[k] for k in timed}))
-        if r["name"] in shapes:                   # K 448, then K 65,536
+        if "device_ms" in r:
             kernels[-1]["device_ms"] = r["device_ms"]
+        if r["name"] in shapes:        # A, B: K 448, 65,536; C: O 10⁵, 2e4
+            dims = ("R", "O", "D") if "R" in r else ("Q", "K", "D")
             kernels[-1]["shapes"] = [
-                dict(Q=x["Q"], K=x["K"], D=x["D"], device_ms=x["device_ms"],
+                dict(**{k: x[k] for k in dims}, device_ms=x["device_ms"],
                      **{k: x[k] for k in timed})
                 for x in shapes[r["name"]]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,9 +43,9 @@ SIGNATURES = {
     },
     "gains.cu": {
         "simcache_gains": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                           _P, _P],
+                           _P, _I, _I, _P],
         "simcache_greedy_gain": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                 _P, _P],
+                                 _P, _I, _I, _P],
     },
     "flash.cu": {
         "simcache_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

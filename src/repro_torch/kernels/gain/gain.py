@@ -4,11 +4,13 @@ Kernel D (``simcache_greedy_gain`` in ``kernels/csrc/gains.cu``)
 replaces the Pallas TPU kernel ``repro/kernels/gain/gain.py::
 _gain_kernel``: the single-ingress precursor of kernel C (kernels/knn/
 gains.py), with λ and cur per request and one row of H per request. It
-is C's design with I = 1: one block owns a candidate tile and walks
-every request tile in order, its J sums per candidate in registers, no
-atomics. Bound on the card: the 2·R·O·D-flop fp32 C_a tile. The kernel
-masks the ragged request and candidate edges, in place of the
-reference's zero padding of R, O and D (which preserves distances).
+is C's template with I = 1, the H rows staged per request tile beside λ
+and cur, and C's plan (``_gain_plan``): one block owns a candidate tile
+and walks every request tile in order, its J sums per candidate and
+request chain in registers, no atomics — so on equal H rows its output
+is C's, bit for bit. Bound on the card: the 2·R·O·D-flop fp32 C_a tile.
+The kernel masks the ragged request and candidate edges, in place of
+the reference's zero padding of R, O and D (which preserves distances).
 
 :func:`gain_cuda` launches it for CUDA tensors and runs the plain
 version, :func:`~repro_torch.kernels.gain.ref.gain_ref`, for CPU
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.kernels.build import LIBRARY, check, stream_ptr
 from repro_torch.kernels.gain.ref import gain_ref
-from repro_torch.kernels.knn.gains import MAX_CACHES
+from repro_torch.kernels.knn.gains import MAX_CACHES, _launch_args
 from repro_torch.kernels.knn.knn import _contig_f32, _metric_id
 
 DEFAULT_BR = 256
@@ -56,7 +58,8 @@ def gain_cuda(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
     check(LIBRARY.fn("simcache_greedy_gain")(
         xs.data_ptr(), ys.data_ptr(), lm.data_ptr(), cu.data_ptr(),
         h.data_ptr(), R, O, D, J, _metric_id(metric), float(gamma),
-        out.data_ptr(), stream_ptr(xs)), "simcache_greedy_gain")
+        out.data_ptr(), *_launch_args(xs, ys, 1, J, True),
+        stream_ptr(xs)), "simcache_greedy_gain")
     gain_cuda.launches += 1
     return out
 

@@ -9,12 +9,17 @@ over all candidate (object o', cache j) pairs, where ``cur`` is the
 current per-(ingress, object) serving cost C(r, A). Counterpart of
 ``repro.kernels.knn.gains``:
 
-* :func:`gains_cuda` — kernel C (``kernels/csrc/gains.cu``), replacing
-  the Pallas TPU kernel ``repro/kernels/knn/gains.py::_gains_kernel``.
-  One block owns a candidate tile and walks every request tile in order,
-  its J sums per candidate in registers — no atomics, so each sum has
-  one fixed order. Bound on the card: the 2·R·O·D-flop fp32 C_a tile.
-  For CPU tensors it runs the plain version, :func:`_gains_tiles`.
+* :func:`gains_cuda` — kernel C (``kernels/csrc/gains.cu``, design notes
+  there), replacing the Pallas TPU kernel
+  ``repro/kernels/knn/gains.py::_gains_kernel``. A block owns a tile of
+  candidates, resident in shared memory, and walks every request tile in
+  order (staged by ``cp.async``); each thread keeps an 8-request × 4-
+  candidate register tile of one request chain (r mod 4) and its J sums
+  per candidate — no atomics, so each sum has one fixed order, the same
+  for any tiling of the candidates. Bound on the card: the
+  2·R·O·D-flop fp32 C_a tile. :func:`_gain_plan` says whether the
+  candidate tile fits resident. For CPU tensors it runs the plain
+  version, :func:`_gains_tiles`.
   ``gains_cuda.launches`` counts kernel launches.
 * :func:`placement_gains` — the public entry (sentinel mapping and the
   (J, O) → (O, J) transpose), behind every GREEDY seed.
@@ -26,6 +31,9 @@ them to zero gain; inf − inf would breed NaNs).
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels.build import LIBRARY, check, stream_ptr
@@ -35,6 +43,89 @@ from repro_torch.kernels.knn.ref import _dense_ca
 DEFAULT_BO = 256
 H_SENTINEL = 1.0e30      # finite stand-in for +inf (off-path) retrieval cost
 MAX_CACHES = 8           # J the kernel holds in registers
+
+# the kernels' shape constants (kernels/csrc/gains.cu)
+CHAINS = 4                # request chains (r mod 4), combined in order
+REQ_TILE = 32             # requests per tile
+O_TILE = 128              # candidates per block (one warp per chain)
+D_CHUNK = 32              # features per staged chunk
+X_STRIDE = D_CHUNK + 4    # request chunk row stride in shared memory
+Y_STREAM_STRIDE = D_CHUNK + 4  # streamed candidate chunk row stride
+STAGES = 3                # chunks in the cp.async ring
+J_WIDTHS = (1, 3, 8)      # J widths the fold is unrolled to
+SMEM_LIMIT = 232_448      # dynamic shared memory a block may use (H100)
+
+
+def _j_width(J: int, y_stream: bool) -> int:
+    """The J width a call runs at (the streamed tile only at 8)."""
+    return 8 if y_stream else next(w for w in J_WIDTHS if J <= w)
+
+
+def _cand_stride(D: int) -> int:
+    """Row stride of the resident candidate tile: D rounded up to 4, then
+    an odd number of float4s (conflict-free float4 reads)."""
+    d4 = -(-D // 4) * 4
+    return d4 + 4 if (d4 // 4) % 2 == 0 else d4
+
+
+def _smem_bytes(D: int, I: int, j_width: int, per_request_h: bool,
+                y_stream: bool) -> int:
+    """Dynamic shared memory of one block (kept equal to gains.cu's
+    ``layout``): the candidate tile (resident, or one chunk per stage;
+    reused by the chain combine), the request ring, λ and cur per stage,
+    H (per stage for kernel D, once for C) and the tile's |x|²."""
+    ys = (STAGES * O_TILE * Y_STREAM_STRIDE if y_stream
+          else O_TILE * _cand_stride(D))
+    part = (CHAINS - 1) * j_width * O_TILE
+    h = STAGES * REQ_TILE * j_width if per_request_h else I * j_width
+    return 4 * (max(ys, part) + STAGES * REQ_TILE * X_STRIDE
+                + 2 * STAGES * I * REQ_TILE + -(-h // 4) * 4 + REQ_TILE)
+
+
+class GainPlan(NamedTuple):
+    """How one call runs: whether the candidate tile streams beside the
+    requests, the J width, and the block's shared memory."""
+    y_stream: bool
+    j_width: int
+    smem_bytes: int
+    O: int
+
+    def tiles(self) -> list[tuple[int, int]]:
+        """Each block's candidate range [start, end), in block order."""
+        return [(s, min(self.O, s + O_TILE))
+                for s in range(0, self.O, O_TILE)]
+
+
+@functools.lru_cache(maxsize=None)
+def _gain_plan(O: int, D: int, I: int, J: int,
+               per_request_h: bool) -> GainPlan:
+    """The plan of an (O, D, I, J) call. Blocks own whole tiles of
+    O_TILE candidates in order and never split the request axis. On an
+    H100 this one tile was the fastest at both main-path sizes
+    (PERF.md): at R = O = 10⁵ three 66 KB blocks of 128 candidates (12
+    warps) share an SM, and at the stream's 20,000 its 157 blocks give
+    every SM one. The candidates stay resident in shared memory where
+    their rows fit (D ≤ 420 at I = 1), and stream beside the requests
+    where they do not."""
+    for y_stream in (False, True):
+        jw = _j_width(J, y_stream)
+        smem = _smem_bytes(D, I, jw, per_request_h, y_stream)
+        if smem <= SMEM_LIMIT:
+            return GainPlan(y_stream, jw, smem, O)
+    raise ValueError(f"the gain kernels stage λ and cur of every ingress "
+                     f"per request tile: {I} ingresses do not fit in "
+                     f"shared memory")
+
+
+def _launch_args(x: torch.Tensor, y: torch.Tensor, I: int, J: int,
+                 per_request_h: bool) -> tuple[int, int]:
+    """(y_stream, vec16) of a call on the card: the plan, and the staging
+    path (1: 16-byte copies, for D % 4 == 0 and aligned rows)."""
+    O, D = y.shape
+    plan = _gain_plan(O, D, I, J, per_request_h)
+    vec16 = int(D % 4 == 0 and x.data_ptr() % 16 == 0
+                and y.data_ptr() % 16 == 0)
+    return int(plan.y_stream), vec16
 
 
 def _fold_tile(ca_t: torch.Tensor, lam: torch.Tensor, cur: torch.Tensor,
@@ -90,7 +181,8 @@ def gains_cuda(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
     check(LIBRARY.fn("simcache_gains")(
         xs.data_ptr(), ys.data_ptr(), lm.data_ptr(), cu.data_ptr(),
         h.data_ptr(), R, O, D, I, J, _metric_id(metric), float(gamma),
-        out.data_ptr(), stream_ptr(xs)), "simcache_gains")
+        out.data_ptr(), *_launch_args(xs, ys, I, J, False),
+        stream_ptr(xs)), "simcache_gains")
     gains_cuda.launches += 1
     return out
 

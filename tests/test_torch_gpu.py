@@ -482,7 +482,7 @@ def test_gain_kernel_matches_plain(cuda, metric, gamma, R, O, D, J):
 @pytest.mark.parametrize("metric", ["l1", "l2"])
 def test_gain_kernel_matches_kernel_c_on_equal_rows(cuda, metric):
     """With every H row equal, kernel D computes kernel C's function at
-    I = 1, in the same order: the two agree to f32 rounding."""
+    I = 1, in the same order: the two agree bit for bit."""
     g = torch.Generator().manual_seed(9)
     R, O, D = 777, 301, 37
     x = torch.randn(R, D, generator=g).to(cuda)
@@ -493,4 +493,105 @@ def test_gain_kernel_matches_kernel_c_on_equal_rows(cuda, metric):
     d = gain_cuda(x, y, lam, cur, hrow.expand(R, 3), metric)
     c = G.gains_cuda(x, y, lam[None], cur[None], hrow, metric)
     torch.cuda.synchronize()
-    torch.testing.assert_close(d, c, rtol=1e-6, atol=1e-6)
+    assert torch.equal(d, c)
+
+
+def _gain_inputs(cuda, seed, R, O, D, I, J):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(R, D, generator=g).to(cuda)
+    y = torch.randn(O, D, generator=g).to(cuda)
+    lam = torch.rand(I, R, generator=g).to(cuda)
+    cur = (torch.rand(I, R, generator=g) * 6).to(cuda)
+    H = torch.rand(I, J, generator=g).to(cuda)
+    Hr = torch.rand(R, J, generator=g).to(cuda)
+    return x, y, lam, cur, H, Hr
+
+
+def _both_gains(x, y, lam, cur, H, Hr, metric="l2"):
+    """Kernel C at I ingresses, and kernel D on the first ingress."""
+    return (G.gains_cuda(x, y, lam, cur, H, metric),
+            gain_cuda(x, y, lam[0], cur[0], Hr, metric))
+
+
+def _forced_plan(monkeypatch, y_stream):
+    def plan(O, D, I, J, per_request_h):
+        jw = G._j_width(J, y_stream)
+        return G.GainPlan(y_stream, jw, G._smem_bytes(
+            D, I, jw, per_request_h, y_stream), O)
+    monkeypatch.setattr(G, "_gain_plan", plan)
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+@pytest.mark.parametrize("R,O,D", [(333, 1000, 100), (700, 16_385, 37),
+                                   (129, 5000, 1000)])
+def test_gains_bitwise_under_candidate_subsets_and_permutations(
+        cuda, metric, R, O, D):
+    """Each candidate's gain has one fixed order whatever the candidate
+    tiling: a slice or a permutation of the candidates gives its columns
+    of the full call bit for bit, for C and for D, with the candidate
+    tile resident (D 100, 37) and streamed (D 1000)."""
+    x, y, lam, cur, H, Hr = _gain_inputs(cuda, O + D, R, O, D, 2, 3)
+    full = _both_gains(x, y, lam, cur, H, Hr, metric)
+    for a, b in ((0, 1), (O - 1, O), (127, 129), (1, O - 300),
+                 (O // 3, O // 3 + 257)):
+        for f, s in zip(full, _both_gains(x, y[a:b], lam, cur, H, Hr,
+                                          metric)):
+            assert torch.equal(s, f[:, a:b]), (a, b)
+    perm = torch.randperm(O, generator=torch.Generator().manual_seed(3))
+    for f, s in zip(full, _both_gains(x, y[perm.to(cuda)], lam, cur, H, Hr,
+                                      metric)):
+        assert torch.equal(s, f[:, perm.to(cuda)])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("y_stream", [False, True])
+@pytest.mark.parametrize("R,O,D,J", [(333, 1000, 100, 8), (200, 700, 19, 3)])
+def test_gains_bitwise_across_plans(cuda, monkeypatch, y_stream, R, O, D,
+                                    J):
+    """A resident and a streamed candidate tile (which also runs at J
+    width 8 where J is 3) give the same bits."""
+    x, y, lam, cur, H, Hr = _gain_inputs(cuda, 5, R, O, D, 3, J)
+    ref = _both_gains(x, y, lam, cur, H, Hr)
+    _forced_plan(monkeypatch, y_stream)
+    for r, got in zip(ref, _both_gains(x, y, lam, cur, H, Hr)):
+        assert torch.equal(got, r)
+
+
+@pytest.mark.parametrize("D", [3, 19, 100, 130])
+def test_gains_staging_paths(cuda, D):
+    """D % 4 != 0 and views 4 bytes off take the 4-byte copies; the bits
+    are those of the 16-byte path on the same values."""
+    R, O = 300, 600
+    x, y, lam, cur, H, Hr = _gain_inputs(cuda, D, R, O, D, 1, 3)
+    ref = _both_gains(x, y, lam, cur, H, Hr)
+    xb = torch.empty(R * D + 1, device=cuda)
+    yb = torch.empty(O * D + 1, device=cuda)
+    xv, yv = xb[1:].view(R, D), yb[1:].view(O, D)
+    xv.copy_(x)
+    yv.copy_(y)
+    assert xv.data_ptr() % 16 != 0 and yv.data_ptr() % 16 != 0
+    for r, got in zip(ref, _both_gains(xv, yv, lam, cur, H, Hr)):
+        assert torch.equal(got, r)
+    torch.testing.assert_close(
+        ref[0], G._gains_tiles(x, y, lam, cur, H, "l2", 1.0).T,
+        rtol=5e-5, atol=5e-4)
+
+
+@pytest.mark.parametrize("I", [1, 2, 3])
+@pytest.mark.parametrize("J", list(range(1, 9)))
+def test_gains_every_ingress_and_cache_count(cuda, I, J):
+    """Every J width (1, 3, 8, and the J they cover) against the plain
+    versions; D equals C bitwise on equal H rows."""
+    R, O, D = 257, 300, 20
+    x, y, lam, cur, H, Hr = _gain_inputs(cuda, 10 * I + J, R, O, D, I, J)
+    H[-1, 0] = G.H_SENTINEL
+    got = G.gains_cuda(x, y, lam, cur, H)
+    torch.testing.assert_close(
+        got, G._gains_tiles(x, y, lam, cur, H, "l2", 1.0).T,
+        rtol=5e-5, atol=5e-4)
+    d = gain_cuda(x, y, lam[0], cur[0], Hr)
+    torch.testing.assert_close(d, gain_ref(x, y, lam[0], cur[0], Hr).T,
+                               rtol=5e-5, atol=5e-4)
+    c1 = G.gains_cuda(x, y, lam[:1], cur[:1], H[:1])
+    assert torch.equal(gain_cuda(x, y, lam[0], cur[0],
+                                 H[:1].expand(R, J).contiguous()), c1)
