@@ -10,7 +10,8 @@ Phases, one line each before the last:
 2. ``build`` — seconds to build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel); for each instantiation of kernels A and B, and of kernels
-   C and D, ptxas's registers and spills; for kernel E's bf16 (tensor-core)
+   C and D, and of kernel F, ptxas's registers and spills; for kernel E's
+   bf16 (tensor-core)
    instantiations, the same, their dynamic shared memory, and where
    ``cuobjdump`` exists the ``HGMMA`` (and ``HMMA``) instructions in
    their SASS, which must be there.
@@ -34,7 +35,10 @@ Phases, one line each before the last:
    A and B at K 65,536 must beat the matmul form. C is held at the
    engine's R = O = 10⁵ and the stream phase's 20,000; its columns for a
    ragged slice of the candidates must be those of the full call bit for
-   bit, and D must equal C bit for bit on equal H rows.
+   bit, and D must equal C bit for bit on equal H rows. Past 8 caches
+   (``gain_groups``): C at I 4 and J 9, 17 and 32, D at J 9, on the
+   stream phase's catalog, in ⌈J/8⌉ launches, against their plain
+   versions and bitwise against J ≤ 8 slices of H.
 4. ``stable`` — bitwise pair equality of the shape-stable distance form
    across column, k-batch and row-block shapes on the card (and its
    largest relative difference from the CPU).
@@ -45,6 +49,12 @@ Phases, one line each before the last:
    outside the counted runs, A's served batch and B on each level held
    against their plain versions at these shapes (split plans of their
    own).
+   Then ``duel``: kernel F, the NETDUEL scan between promotions, at the
+   engine's scale (10⁵ objects, K 448, C_a streamed, from random slots,
+   4,096 requests, window 256), once through F (counted) and once
+   through the plain scan on the card: every output bitwise equal, at
+   least one promotion, F's launches one per promoting step plus one;
+   both scans' times per request, the re-arms' time, F's device time.
 6. ``engine`` — ``SimCacheEngine`` with granite-3-2b at full width
    (random weights from a seed) in front of a 100,000-object catalog.
    The main path: cold serving, ``refresh_placement()`` (cascade on the
@@ -66,12 +76,20 @@ Phases, one line each before the last:
    ``refresh_placement()``, a warm run whose cadence starts a background
    refresh, and ``drain_refresh()``. Kernel E's and A's launches are
    counted over the phase.
+   Then ``duel_engine``: the online plane on the serving path — the
+   same engine with ``netduel`` and ``refresh_on_promotion`` (1,024 cold
+   requests, ``refresh_placement()``, 4,096 warm requests, the drain),
+   its launches counted over the run (F's among them); every batch each
+   duel plane observed is replayed through a second ``DuelPlane`` on the
+   plain scan, whose carry must equal the engine's bitwise.
 9. ``launch`` — ``python -m repro_torch.launch.serve`` in a subprocess,
-   batch loop and streaming; each must exit 0 and print its final
-   ``[serve] … hit-rate`` line.
+   batch loop, streaming, and streaming with ``--netduel``; each must
+   exit 0 and print its final ``[serve] … hit-rate`` line (and the duel
+   churn with ``--netduel``).
 10. ``kernels`` — one JSON object with every kernel's numbers; A's and
    B's entries also carry each of their two shapes (K 448 and 65,536),
-   C's its two (R = O = 10⁵ and 20,000).
+   C's its two (R = O = 10⁵ and 20,000) and its times past 8 caches; F's
+   launches are those of the ``duel_engine`` run.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script then exits non-zero and prints no result. It
@@ -280,6 +298,16 @@ def phase_build():
     if len(gain) != 24:                # 3 metrics x (C, D) x 4 variants
         raise RuntimeError(f"ptxas reported {len(gain)} gain kernel "
                            f"instantiations, not 24: {sorted(gain)}")
+    duel = {}                          # kernel F, per instantiation
+    for name, info in entries.items():
+        m = re.search(r"duel_scan_kernelILb(\d)ELi(\d)E", name)
+        if m:
+            key = "materialized" if m[1] == "1" else \
+                f"streamed {('l1', 'l2', 'l2sq')[int(m[2])]}"
+            duel[key] = info
+    if len(duel) != 4:                 # materialized + 3 streamed metrics
+        raise RuntimeError(f"ptxas reported {len(duel)} duel kernel "
+                           f"instantiations, not 4: {sorted(duel)}")
     log("build", seconds=LIBRARY.build_seconds,
         registers=sorted({int(r) for r in re.findall(
             r"Used (\d+) registers", log_)}),
@@ -288,6 +316,7 @@ def phase_build():
         flash_bf16_kernels=dict(sorted(flash_tc.items())),
         lookup_kernels=dict(sorted(lookup.items())),
         gain_kernels=dict(sorted(gain.items())),
+        duel_kernels=dict(sorted(duel.items())),
         flash_bf16_sass=sass,
         ptxas_log=str(BUILD_DIR / "ptxas.log"))
     if sorted(flash_tc) != sorted(f"Dh{d}" for d in HEAD_DIMS) or (
@@ -923,6 +952,326 @@ def phase_kernel_d(torch, coords, lam_np):
     return res
 
 
+# J of the P7 checks: the reference's scenario networks have 17–32 caches
+GAIN_GROUP_J = (9, 17, 32)
+
+
+def _j_slices(J):
+    """Each group of 8 caches, and slices of at most 8 across groups."""
+    from repro_torch.kernels.knn.gains import J_GROUP, _j_groups
+    out = _j_groups(J)
+    out += [(a, min(J, a + w)) for a, w in ((4, 8), (7, 2), (J - 3, 3),
+                                           (J // 2, 5))]
+    return sorted({s for s in out if s[1] - s[0] <= J_GROUP})
+
+
+def phase_gain_groups(torch, coords, lam_np):
+    """Kernels C and D past 8 caches (ROADMAP P7): C at I = 4 ingresses
+    and J 9, 17 and 32 (the reference's scenario networks have 17–32
+    caches), D at J 9, on the stream phase's catalog (R = O = 20,000,
+    D 100), cur 1000, H random in [0, 300) with every 7th entry off the
+    path. Each call is ⌈J/8⌉ launches, held against its plain version
+    (kernel C's tolerance, summed over the ingresses) and bitwise against
+    J ≤ 8 slices of H (the groups, and slices across them). Device times
+    per call; each group recomputes the C_a tile, so the bound is that
+    of the function (the tile once)."""
+    from repro_torch.kernels.gain import gain_cuda, gain_ref
+    from repro_torch.kernels.knn.gains import (H_SENTINEL, _gains_tiles,
+                                               _j_groups, gains_cuda)
+    dev = torch.device("cuda")
+    x = torch.as_tensor(coords, device=dev)
+    R, D = x.shape
+    lam = torch.as_tensor(lam_np, dtype=torch.float32, device=dev)
+    I = lam.shape[0]
+    cur = torch.full_like(lam, 1000.0)
+    tol_pair = gain_tolerance(torch, x, lam).sum(0, keepdim=True)
+    rng = np.random.default_rng(7)
+    rows = []
+    for J in GAIN_GROUP_J:
+        H = torch.as_tensor(rng.random((I, J), dtype=np.float32) * 300.0,
+                            device=dev)
+        H.view(-1)[::7] = H_SENTINEL
+        n0 = gains_cuda.launches
+        got = gains_cuda(x, x, lam, cur, H, "l2")
+        launches = gains_cuda.launches - n0
+        ref = _gains_tiles(x, x, lam, cur, H, "l2", 1.0).T
+        sliced = all(torch.equal(gains_cuda(x, x, lam, cur,
+                                            H[:, a:b].contiguous(), "l2"),
+                                 got[a:b]) for a, b in _j_slices(J))
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        tol = tol_pair + 1e-4 * ref.abs()
+        call = lambda: gains_cuda(x, x, lam, cur, H, "l2")  # noqa: E731
+        dev_t = device_ms(torch, call, 2, "gains_kernel")
+        bms, by = bound_ms(4 * (2 * R * D + 2 * I * R + I * J + J * R),
+                           2 * R * R * D + R * R * (3 + 3 * I * J))
+        rows.append(dict(kernel="C", R=R, O=R, D=D, I=I, J=J,
+                         groups=_j_groups(J), launches=launches,
+                         max_abs_err=float(err.max()),
+                         tol_max=float(tol.max()),
+                         slices_bitwise=sliced, ms=cuda_ms(torch, call, 2),
+                         **dev_t, bound_ms=bms, bound_by=by,
+                         share_of_bound=bms / dev_t["device_ms"],
+                         ok=bool((err <= tol).all()) and sliced
+                         and launches == len(_j_groups(J))
+                         and bool(torch.isfinite(got).all())))
+        del got, ref, err, tol
+    J = 9
+    hr = torch.as_tensor(rng.random((R, J), dtype=np.float32) * 300.0,
+                         device=dev)
+    hr[::5, 3] = H_SENTINEL
+    n0 = gain_cuda.launches
+    got = gain_cuda(x, x, lam[0], cur[0], hr, "l2")
+    launches = gain_cuda.launches - n0
+    ref = gain_ref(x, x, lam[0], cur[0], hr, "l2").T
+    sliced = all(torch.equal(gain_cuda(x, x, lam[0], cur[0],
+                                       hr[:, a:b].contiguous(), "l2"),
+                             got[a:b]) for a, b in _j_slices(J))
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    tol = gain_tolerance(torch, x, lam[:1]) + 1e-4 * ref.abs()
+    rows.append(dict(kernel="D", R=R, O=R, D=D, I=1, J=J,
+                     launches=launches, max_abs_err=float(err.max()),
+                     tol_max=float(tol.max()), slices_bitwise=sliced,
+                     ok=bool((err <= tol).all()) and sliced
+                     and launches == 2))
+    log("gain_groups", rows=rows)
+    if not all(r["ok"] for r in rows):
+        raise RuntimeError(f"kernels C and D past 8 caches failed: {rows}")
+    return rows
+
+
+DUEL_T, DUEL_WINDOW, DUEL_ARM = 4096, 256, 0.25
+
+
+def _duel_bound(torch, objs, arm_flags, K, D, I):
+    """Kernel F's bound for a window, from this run's data: each armed
+    duel is priced from the step after its arming to its expiry (every
+    free-slot count stays positive here: at most ``DUEL_WINDOW``·p duels
+    are armed at once, far below K), each pricing a streamed chain of 3·D
+    operations and 5 more (sqrt, + h, − b1, max, + vs). Bytes: the
+    window (objs, ings, ts 8 B, the flag 1 B, the draw 4 B a step), the
+    rows of C_a's objects (the requested ones; the virtuals are
+    requested objects too), each requested (i, o) entry of best1, arg1
+    and best2, h_slots, the carry read and written, and the served cost
+    written."""
+    T = len(objs)
+    arms = np.nonzero(arm_flags)[0]
+    starts = np.zeros(T + DUEL_WINDOW + 2, np.int64)
+    np.add.at(starts, arms + 1, 1)
+    np.add.at(starts, arms + DUEL_WINDOW + 1, -1)
+    priced = int(np.cumsum(starts)[:T].sum())
+    distinct = len(np.unique(objs))
+    n_bytes = 29 * T + distinct * (4 * D + 16) + 4 * I * K + 2 * 32 * K \
+        + 4 * T
+    return bound_ms(n_bytes, priced * (3 * D + 5)) + (priced,)
+
+
+def phase_duel(torch, cat, dem, clock_hz: float):
+    """Kernel F at the engine's scale: the 10⁵-object catalog, its
+    Zipf(0.8) demand, its three levels (64 / 128 / 256 slots, K = 448,
+    h = 0 / 15 / 150, h_repo 1000), C_a streamed (``materialize_ca=False``,
+    the engine's duel plane), from ``random_slots`` so that duels
+    promote. The scan runs over 4,096 requests with window 256 once
+    through F (counted) and once through ``_duel_scan_ref``, both on the
+    card; every output must be bitwise equal (events, slots, virt,
+    deadlines, both savings, the per-step served cost), with at least one
+    promotion. The public entry, ``device_netduel``, must give the same.
+    Times: each scan over the window (host included, re-arms included),
+    per request; the re-arms alone; F's device time (torch.profiler).
+    Beside the bound from the card's rates, the chain floor: a step's
+    streamed pricing is one chain of D dependent rounded adds (4 clocks
+    each at the card's maximum SM clock), and the steps run in order."""
+    import importlib
+
+    from repro_torch.core.objective import DeviceInstance, Instance
+    from repro_torch.core.placement import device_netduel
+    from repro_torch.core.placement.localswap import emulated_stream
+    from repro_torch.core.topology import tpu_hierarchy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    nd = importlib.import_module("repro_torch.core.placement.netduel")
+    net = tpu_hierarchy(64, 128, 256, 15.0, 150.0, 1000.0)
+    inst = Instance(net=net, cat=cat, dem=dem)
+    t0 = time.perf_counter()
+    dinst = DeviceInstance.from_instance(inst, materialize_ca=False)
+    rng, slots0, objs, ings = emulated_stream(inst, DUEL_T, 0)
+    arm_draws, slot_draws = nd._duel_draws(rng, DUEL_T)
+    arm_flags = arm_draws < DUEL_ARM
+    h_slots, on_path = nd._scan_args(dinst)
+    xs = nd._duel_xs(objs, ings, 0, arm_flags, slot_draws,
+                     device=dinst.device)
+    carry0 = nd._duel_carry(dinst, slots0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    one_delta = float(np.float32(1.05))
+
+    def scan(kernel, timings=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = nd._duel_scan(dinst, h_slots, on_path, carry0, xs, one_delta,
+                            DUEL_WINDOW, True, False, 0, kernel=kernel,
+                            timings=timings)
+        torch.cuda.synchronize()
+        return (*out, time.perf_counter() - t)
+
+    timings = {}
+    reset_launch_counts()                        # F's own run
+    kc, ko, k_s = scan(True, timings)
+    launches = launch_counts()["duel_scan"]
+    pc, po, p_s = scan(False)
+    fields = list(nd.DuelCarry._fields)
+    carry_equal = {f: bool(torch.equal(a, b))
+                   for f, a, b in zip(fields, kc, pc)}
+    b1_equal = bool(torch.equal(ko.b1, po.b1))
+    events_equal = len(ko.events) == len(po.events) and all(
+        ek[0] == ep[0] and all(torch.equal(a, b)
+                               for a, b in zip(ek[1:], ep[1:]))
+        for ek, ep in zip(ko.events, po.events))
+    diffs = [float((a.double() - b.double()).abs().max())
+             for a, b in ((kc.real_sav, pc.real_sav),
+                          (kc.virt_sav, pc.virt_sav), (ko.b1, po.b1))]
+    n_prom = int(kc.n_prom.sum())
+    promoting_steps = len(ko.events)
+    # the public entry point: the same draws, the same result
+    st = device_netduel(dinst, n_iters=DUEL_T, seed=0, window=DUEL_WINDOW,
+                        arm_prob=DUEL_ARM)
+    entry_equal = (np.array_equal(st.slots, kc.slots.cpu().numpy())
+                   and np.array_equal(st.virt_sav, kc.virt_sav.cpu().numpy())
+                   and st.n_promotions == n_prom)
+    dev_t = device_ms(torch, lambda: scan(True), 1, "duel_scan_kernel")
+    K, D, I = h_slots.shape[1], cat.dim, h_slots.shape[0]
+    bms, by, priced = _duel_bound(torch, objs, arm_flags, K, D, I)
+    res = dict(name="duel_scan", catalog=cat.n, dim=D, K=K, T=DUEL_T,
+               window=DUEL_WINDOW, arm_prob=DUEL_ARM, setup_s=setup_s,
+               promotions=n_prom, promoting_steps=promoting_steps,
+               launches=launches, carry_bitwise=carry_equal,
+               b1_bitwise=b1_equal, events_bitwise=events_equal,
+               entry_point_equal=entry_equal,
+               max_abs_err=max(diffs), ms=k_s * 1e3, plain_ms=p_s * 1e3,
+               ms_per_request=k_s * 1e3 / DUEL_T,
+               plain_ms_per_request=p_s * 1e3 / DUEL_T,
+               rearm_ms=timings.get("rearm_s", 0.0) * 1e3,
+               rearms=timings.get("rearms", 0),
+               kernel_device_ms=dev_t["device_ms"],
+               kernel_device_ms_per_request=dev_t["device_ms"] / DUEL_T,
+               priced_duels=priced, bound_ms=bms, bound_by=by,
+               chain_floor_ms=DUEL_T * D * 4 / clock_hz * 1e3,
+               library_ms=None)
+    log("duel", **res)
+    ok = (all(carry_equal.values()) and b1_equal and events_equal
+          and entry_equal and n_prom > 0 and max(diffs) == 0.0
+          and launches == promoting_steps + (
+              0 if ko.events and ko.events[-1][0] == DUEL_T - 1 else 1))
+    if not ok:
+        raise RuntimeError(f"kernel F disagrees with the plain scan: {res}")
+    return res
+
+
+def phase_duel_engine(torch, params):
+    """The online plane on the serving path, at full width: the ``stream``
+    phase's engine (granite-3-2b, 40 layers, flash attention, the
+    20,000-object catalog, 4 Zipf(1.0) streams) with ``netduel`` and
+    ``refresh_on_promotion``: 1,024 cold requests, ``refresh_placement()``
+    (which arms the duel plane), 4,096 warm requests behind
+    ``StreamDriver``, ``drain_refresh()``. The launch counts are zeroed
+    just before and read just after. Every batch each duel plane observed
+    (objects, the lookup's b1 at the bucket shape, n_valid) is recorded;
+    outside the counted run each plane's batches are replayed through a
+    second ``DuelPlane`` on the plain scan, whose carry must equal the
+    engine plane's bitwise."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import catalog as catalog_api
+    from repro_torch.core import demand as demand_api
+    from repro_torch.core.placement import DuelPlane
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (EngineConfig, SimCacheEngine,
+                                   StreamDriver, StreamSpec)
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              use_flash_attention=True)
+    cat = catalog_api.embedding_catalog(n=20_000, dim=100, seed=1)
+    ecfg = EngineConfig(h_ici=15.0, h_dcn=150.0, h_model=1000.0,
+                        netduel=True, refresh_on_promotion=True)
+    eng = SimCacheEngine(cfg, params, ecfg, cat.coords)
+    planes = []
+    arm = eng._arm_duel
+
+    def recording_arm(inst, slots):
+        arm(inst, slots)
+        rec = dict(plane=eng.duel, slots0=np.asarray(slots).copy(),
+                   batches=[])
+        observe = eng.duel.observe
+
+        def recording_observe(objs, ings=None, b1_ext=None, n_valid=None):
+            rec["batches"].append((np.asarray(objs).copy(),
+                                   b1_ext.detach().clone(), n_valid))
+            return observe(objs, ings, b1_ext, n_valid)
+        eng.duel.observe = recording_observe
+        planes.append(rec)
+    eng._arm_duel = recording_arm
+    streams = [StreamSpec(demand=demand_api.zipf(cat, alpha=1.0, seed=s + 1),
+                          rate=1.0 + s, seed=s + 1, name=f"stream{s}")
+               for s in range(4)]
+    drv = StreamDriver(eng, streams, max_batch=256, batch_window=2.0,
+                       prompt_len=128, refresh_every=0)
+    reset_launch_counts()                        # the main path's run
+    t0 = time.perf_counter()
+    cold = drv.run(1024)
+    cold_stats, eng.stats = eng.stats, type(eng.stats)()
+    pred = eng.refresh_placement()
+    warm = drv.run(4096)
+    t = time.perf_counter()
+    drained = drv.drain_refresh()
+    drain_s = time.perf_counter() - t
+    counts = launch_counts()                      # read just after
+    phase_s = time.perf_counter() - t0
+    w = eng.stats
+
+    held = []
+    t = time.perf_counter()
+    for rec in planes:
+        p = rec["plane"]
+        twin = DuelPlane(p.dinst, rec["slots0"], window=ecfg.duel_window,
+                         delta=ecfg.duel_delta, arm_prob=ecfg.duel_arm_prob,
+                         seed=ecfg.duel_seed, plain=True)
+        for objs, b1, n_valid in rec["batches"]:
+            twin.observe(objs, b1_ext=b1, n_valid=n_valid)
+        held.append(dict(
+            batches=len(rec["batches"]), promotions=p.n_promotions,
+            carry_bitwise=all(torch.equal(a, b)
+                              for a, b in zip(p.carry, twin.carry)),
+            served_equal=p.served_cost == twin.served_cost,
+            t_equal=p.t == twin.t))
+    replay_s = time.perf_counter() - t
+    res = dict(model=cfg.name, n_layers=cfg.n_layers, catalog=cat.n,
+               streams=len(streams), duel_window=ecfg.duel_window,
+               cold=dict(requests=cold.n_requests, batches=cold.n_batches,
+                         p50_ms=cold.p50_ms, hit_rate=cold_stats.hit_rate),
+               predicted_cost=pred,
+               warm=dict(requests=warm.n_requests, batches=warm.n_batches,
+                         req_per_s=warm.requests_per_s, p50_ms=warm.p50_ms,
+                         p95_ms=warm.p95_ms, p99_ms=warm.p99_ms,
+                         hit_rate=w.hit_rate, mean_cost=w.mean_cost,
+                         placement_events=warm.placement_events,
+                         swaps_in_run=warm.swaps),
+               placement_events=eng.placement_events,
+               n_promotions=sum(r["plane"].n_promotions for r in planes),
+               duel_planes=len(planes), drain=dict(swapped=drained,
+                                                   seconds=drain_s),
+               swaps=eng.swap_count, launches=counts, phase_s=phase_s,
+               held_against_plain=held, replay_s=replay_s)
+    log("duel_engine", **res)
+    checks = [counts["duel_scan"] > 0, counts["fused_lookup"] > 0,
+              counts["flash_attention"] > 0, w.hit_rate > 0,
+              w.mean_cost < ecfg.h_model, not eng.refresh_in_flight,
+              any(h["batches"] for h in held),
+              all(h["carry_bitwise"] and h["served_equal"] and h["t_equal"]
+                  for h in held)]
+    if not all(checks):
+        raise RuntimeError(f"duel_engine phase failed its checks: {checks}")
+    return counts
+
+
 def _logit_diff(torch, a, b):
     a, b = a.float(), b.float()
     return (float((a - b).abs().max()),
@@ -1090,12 +1439,16 @@ def phase_stream(torch, params):
 
 def phase_launch():
     """The command-line entry point, as a user runs it, in a subprocess
-    of its own (its kernel launches are its own, counted nowhere)."""
+    of its own (its kernel launches are its own, counted nowhere): the
+    batch loop, streaming, and streaming with ``--netduel``, whose
+    printout must carry the duel churn."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     runs = []
     for extra in (["--requests", "256"],
-                  ["--streaming", "--streams", "4", "--requests", "1024"]):
+                  ["--streaming", "--streams", "4", "--requests", "1024"],
+                  ["--streaming", "--streams", "4", "--requests", "1024",
+                   "--netduel"]):
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
                "granite-3-2b", *extra]
         t = time.perf_counter()
@@ -1108,7 +1461,9 @@ def phase_launch():
                          seconds=time.perf_counter() - t, serve_lines=lines))
         if final:
             print(final, flush=True)
-        if p.returncode != 0 or final is None:
+        churn = "--netduel" not in extra or any(
+            "duel churn" in ln for ln in lines)
+        if p.returncode != 0 or final is None or not churn:
             log("launch", runs=runs, stderr_tail=p.stderr[-3000:])
             raise RuntimeError(f"the launcher failed: {' '.join(extra)}")
     log("launch", runs=runs)
@@ -1152,20 +1507,26 @@ def main() -> int:
     c_stream = phase_kernel_c(torch, scat.coords,
                               demand_api.zipf(scat, alpha=1.0, seed=1).lam)
     d = phase_kernel_d(torch, cat.coords, dem.lam)
+    groups = phase_gain_groups(
+        torch, scat.coords,
+        demand_api.zipf(scat, alpha=1.0, n_ingress=4, seed=1).lam)
     e = phase_kernel_e(torch, clock_hz)
     phase_stable(torch, cat.coords)
     phase_bigcache(torch, cat, dem)
+    f = phase_duel(torch, cat, dem, clock_hz)
     counts = phase_engine(torch, cat, dem)
     gc.collect()                                  # the engine's model
     torch.cuda.empty_cache()
     params = phase_prefill(torch)
     stream_counts = phase_stream(torch, params)
+    duel_counts = phase_duel_engine(torch, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     phase_launch()
     counts["greedy_gain"] = d["launches"]         # its entry point's run
     counts["flash_attention"] = stream_counts["flash_attention"]
+    counts["duel_scan"] = duel_counts["duel_scan"]  # the online plane's run
 
     sources = {"fused_lookup": ("src/repro_torch/kernels/csrc/knn.cu",
                                 "src/repro/kernels/knn/knn.py:88"),
@@ -1177,13 +1538,15 @@ def main() -> int:
                                "src/repro/kernels/gain/gain.py:36"),
                "flash_attention": (
                    "src/repro_torch/kernels/csrc/flash.cu",
-                   "src/repro/kernels/flash_attention/flash.py:36")}
+                   "src/repro/kernels/flash_attention/flash.py:36"),
+               "duel_scan": ("src/repro_torch/kernels/csrc/duel.cu",
+                             "src/repro/core/placement/netduel.py:215")}
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     shapes = {"fused_lookup": (a, a_big), "knn": (b, b_big),
               "placement_gains": (c, c_stream)}
     kernels = []
-    for r in (a, b, c, d, e):
+    for r in (a, b, c, d, e, f):
         src, repl = sources[r["name"]]
         kernels.append(dict(
             name=r["name"], route="cuda", source=src, replaces=repl,
@@ -1196,6 +1559,12 @@ def main() -> int:
                 dict(**{k: x[k] for k in dims}, device_ms=x["device_ms"],
                      **{k: x[k] for k in timed})
                 for x in shapes[r["name"]]]
+    # C past 8 caches (P7): its device time per call at each J
+    kernels[2]["groups"] = [
+        dict(**{k: g[k] for k in ("R", "O", "D", "I", "J", "launches",
+                                  "device_ms", "bound_ms")})
+        for g in groups if g["kernel"] == "C"]
+    kernels[5]["device_ms"] = f["kernel_device_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,11 @@ Zipf(0.8) λ, cur = 1000, H = (0, 15, 150)), the stream phase's catalog
 (R = O = 20,000), R = O = 16,385 (just past ``CA_MATERIALIZE_MAX``, where
 an instance stops materializing C_a), a ragged R 333 × O 257 × D 13,
 D 19 (the 4-byte staging path), I 2 and 3, J 1 and 8, l1, l2sq, γ 0.5,
-H with ``H_SENTINEL`` entries, D 1000 (the streamed candidate tile), and
-kernel D's per-request H rows with off-path rows. The inputs are made
+H with ``H_SENTINEL`` entries, D 1000 (the streamed candidate tile),
+kernel D's per-request H rows with off-path rows, and J 9, 17 and 32
+(past the 8 caches a launch holds: the wrappers run groups of 8 caches;
+a revision whose wrappers refuse more than 8 is run here on the same
+groups of H's columns, one call each). The inputs are made
 from seeds in each process and their hash must agree across the runs.
 Every output of this side must be bitwise equal to the other side's and
 to its own second run; each side's device time per call is from
@@ -71,7 +74,16 @@ def cases():
              "H_SENTINEL entries"),
             ("D", 2000, 3000, 100, 1, 4, "l2", 1.0, "offpath",
              "off-path rows")]
+    out += [("C", 2000, 3000, 100, 2, J, "l2", 1.0, "sentinel",
+             "past 8 caches") for J in (9, 17, 32)]
+    out += [("D", 2000, 3000, 100, 1, 9, "l2", 1.0, "offpath",
+             "past 8 caches")]
     return out
+
+
+def j_groups(J):
+    """Groups of at most 8 cache columns, in order."""
+    return [(a, min(J, a + 8)) for a in range(0, J, 8)]
 
 
 def _inputs(torch, case, i, engine, stream):
@@ -133,7 +145,14 @@ def run_side(src: pathlib.Path, out: pathlib.Path) -> None:
             digest.update(t.cpu().numpy().tobytes())
         fn = gains_cuda if kn == "C" else gain_cuda
         call = lambda: fn(x, y, lam, cur, H, metric, gamma)  # noqa: E731
-        outs = [call().cpu()]
+        try:
+            first = call()
+        except ValueError:              # a revision holding ≤ 8 caches
+            groups = [H[:, a:b].contiguous() for a, b in j_groups(H.shape[1])]
+            call = lambda: torch.cat([  # noqa: E731
+                fn(x, y, lam, cur, h, metric, gamma) for h in groups])
+            first = call()
+        outs = [first.cpu()]
         iters = 3 if R * O >= 10 ** 9 else 20
         try:
             times = chip_smoke.device_ms(torch, call, iters, "gains_kernel")
@@ -166,7 +185,7 @@ def main() -> int:
         print("compare_gains: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.knn.gains import _gain_plan
+    from repro_torch.kernels.knn.gains import J_GROUP, _gain_plan
     other = pathlib.Path(sys.argv[1]).resolve() / "src"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -186,10 +205,11 @@ def main() -> int:
         inputs_agree = len({r["inputs"] for r in (o0, t1, t2, o3)}) == 1
         equal = (inputs_agree and bitwise_equal(torch, t1["outs"], o0["outs"])
                  and bitwise_equal(torch, t1["outs"], t2["outs"]))
-        plan = _gain_plan(O, D, I, J, kn == "D")
+        plan = _gain_plan(O, D, I, min(J, J_GROUP), kn == "D")
         print(json.dumps(dict(
             kernel=kn, label=label, R=R, O=O, D=D, I=I, J=J, metric=metric,
-            gamma=gamma, inputs=kind, y_stream=plan.y_stream, j_width=plan.j_width,
+            gamma=gamma, inputs=kind, y_stream=plan.y_stream,
+            j_width=plan.j_width, j_groups=len(j_groups(J)),
             bitwise_equal=equal,
             other_device_ms=[o0["device_ms"], o3["device_ms"]],
             this_device_ms=[t1["device_ms"], t2["device_ms"]],

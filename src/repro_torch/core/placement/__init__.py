@@ -11,8 +11,10 @@ slice ported so far:
   (kernel C). This is the path ``serve.engine.refresh_placement`` takes
   by default.
 
-NETDUEL, the continuous limit and the warm start are later slices
-(ROADMAP queue 1, items 9 and 12).
+``netduel`` (§5) is the online λ-unaware policy, ``device_netduel`` its
+scan on the device (kernel F on the card) and ``DuelPlane`` that scan
+inside the serving engine. The continuous limit and the warm start are
+a later slice (ROADMAP queue 1, item 12).
 """
 from repro_torch.core.placement.cascade import greedy_then_localswap
 from repro_torch.core.placement.device import (device_greedy,
@@ -21,7 +23,10 @@ from repro_torch.core.placement.device import (device_greedy,
                                                device_localswap_polish)
 from repro_torch.core.placement.greedy import greedy
 from repro_torch.core.placement.localswap import localswap, localswap_polish
+from repro_torch.core.placement.netduel import (DuelPlane, device_netduel,
+                                                netduel)
 
-__all__ = ["greedy", "localswap", "localswap_polish",
-           "greedy_then_localswap", "device_greedy", "device_localswap",
-           "device_localswap_polish", "device_greedy_then_localswap"]
+__all__ = ["greedy", "localswap", "localswap_polish", "netduel",
+           "device_netduel", "DuelPlane", "greedy_then_localswap",
+           "device_greedy", "device_localswap", "device_localswap_polish",
+           "device_greedy_then_localswap"]

@@ -24,7 +24,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("knn.cu", "gains.cu", "flash.cu")
+SOURCES = ("knn.cu", "gains.cu", "flash.cu", "duel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +51,10 @@ SIGNATURES = {
         "simcache_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                *[_L] * 12, _F, _I, _I, _P],
         "simcache_flash_tc_smem": [_I],
+    },
+    "duel.cu": {
+        "simcache_duel_scan": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _I,
+                               *[_P] * 13, _I, _I, _F, _L, *[_P] * 7],
     },
 }
 

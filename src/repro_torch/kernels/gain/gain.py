@@ -5,7 +5,8 @@ replaces the Pallas TPU kernel ``repro/kernels/gain/gain.py::
 _gain_kernel``: the single-ingress precursor of kernel C (kernels/knn/
 gains.py), with λ and cur per request and one row of H per request. It
 is C's template with I = 1, the H rows staged per request tile beside λ
-and cur, and C's plan (``_gain_plan``): one block owns a candidate tile
+and cur, C's groups of at most 8 caches a launch (``_j_groups``), and
+C's plan (``_gain_plan``): one block owns a candidate tile
 and walks every request tile in order, its J sums per candidate and
 request chain in registers, no atomics — so on equal H rows its output
 is C's, bit for bit. Bound on the card: the 2·R·O·D-flop fp32 C_a tile.
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.kernels.build import LIBRARY, check, stream_ptr
 from repro_torch.kernels.gain.ref import gain_ref
-from repro_torch.kernels.knn.gains import MAX_CACHES, _launch_args
+from repro_torch.kernels.knn.gains import _j_groups, _launch_args
 from repro_torch.kernels.knn.knn import _contig_f32, _metric_id
 
 DEFAULT_BR = 256
@@ -50,17 +51,19 @@ def gain_cuda(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
         raise ValueError(f"bad gain shapes: x {tuple(xs.shape)}, y "
                          f"{tuple(ys.shape)}, lam {tuple(lm.shape)}, cur "
                          f"{tuple(cu.shape)}, H {tuple(h.shape)}")
-    if not 1 <= J <= MAX_CACHES:
-        raise ValueError(f"kernel D holds 1..{MAX_CACHES} caches, got {J}")
+    groups = _j_groups(J)
     out = torch.empty((J, O), dtype=torch.float32, device=dev)
     if O == 0:
         return out
-    check(LIBRARY.fn("simcache_greedy_gain")(
-        xs.data_ptr(), ys.data_ptr(), lm.data_ptr(), cu.data_ptr(),
-        h.data_ptr(), R, O, D, J, _metric_id(metric), float(gamma),
-        out.data_ptr(), *_launch_args(xs, ys, 1, J, True),
-        stream_ptr(xs)), "simcache_greedy_gain")
-    gain_cuda.launches += 1
+    for a, b in groups:                 # one launch per group of caches
+        hg = h if len(groups) == 1 else h[:, a:b].contiguous()
+        check(LIBRARY.fn("simcache_greedy_gain")(
+            xs.data_ptr(), ys.data_ptr(), lm.data_ptr(), cu.data_ptr(),
+            hg.data_ptr(), R, O, D, b - a, _metric_id(metric),
+            float(gamma), out[a:b].data_ptr(),
+            *_launch_args(xs, ys, 1, b - a, True), stream_ptr(xs)),
+            "simcache_greedy_gain")
+        gain_cuda.launches += 1
     return out
 
 

@@ -18,8 +18,10 @@ current per-(ingress, object) serving cost C(r, A). Counterpart of
   per candidate — no atomics, so each sum has one fixed order, the same
   for any tiling of the candidates. Bound on the card: the
   2·R·O·D-flop fp32 C_a tile. :func:`_gain_plan` says whether the
-  candidate tile fits resident. For CPU tensors it runs the plain
-  version, :func:`_gains_tiles`.
+  candidate tile fits resident. A launch holds at most ``J_GROUP`` = 8
+  caches; a wider network runs in groups of 8 columns, one launch each
+  (:func:`_j_groups`), every column bitwise what a narrower call gives
+  it. For CPU tensors it runs the plain version, :func:`_gains_tiles`.
   ``gains_cuda.launches`` counts kernel launches.
 * :func:`placement_gains` — the public entry (sentinel mapping and the
   (J, O) → (O, J) transpose), behind every GREEDY seed.
@@ -42,7 +44,7 @@ from repro_torch.kernels.knn.ref import _dense_ca
 
 DEFAULT_BO = 256
 H_SENTINEL = 1.0e30      # finite stand-in for +inf (off-path) retrieval cost
-MAX_CACHES = 8           # J the kernel holds in registers
+J_GROUP = 8              # caches a launch holds in registers
 
 # the kernels' shape constants (kernels/csrc/gains.cu)
 CHAINS = 4                # request chains (r mod 4), combined in order
@@ -57,8 +59,24 @@ SMEM_LIMIT = 232_448      # dynamic shared memory a block may use (H100)
 
 
 def _j_width(J: int, y_stream: bool) -> int:
-    """The J width a call runs at (the streamed tile only at 8)."""
+    """The J width a launch of J ≤ ``J_GROUP`` caches runs at (the
+    streamed tile only at 8)."""
     return 8 if y_stream else next(w for w in J_WIDTHS if J <= w)
+
+
+def _j_groups(J: int) -> list[tuple[int, int]]:
+    """The cache columns [start, end) of each launch of a J-cache call:
+    groups of ``J_GROUP`` in order, the last one ragged.
+
+    Each column's sums run in an order that does not depend on the other
+    columns, so every column of a grouped call is bitwise the column of a
+    J ≤ 8 call over any slice holding it, and a J ≤ 8 call is one launch
+    as before. The cost: every group recomputes the C_a tile, so J 32
+    does 4× the product work of J 8 (a kernel that kept the tile across
+    groups is later work, ROADMAP P8)."""
+    if J < 1:
+        raise ValueError(f"the gain kernels need at least one cache, got {J}")
+    return [(s, min(J, s + J_GROUP)) for s in range(0, J, J_GROUP)]
 
 
 def _cand_stride(D: int) -> int:
@@ -173,17 +191,19 @@ def gains_cuda(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
         raise ValueError(f"bad gain shapes: x {tuple(xs.shape)}, y "
                          f"{tuple(ys.shape)}, lam {tuple(lm.shape)}, cur "
                          f"{tuple(cu.shape)}, H {tuple(h.shape)}")
-    if not 1 <= J <= MAX_CACHES:
-        raise ValueError(f"kernel C holds 1..{MAX_CACHES} caches, got {J}")
+    groups = _j_groups(J)
     out = torch.empty((J, O), dtype=torch.float32, device=dev)
     if O == 0:
         return out
-    check(LIBRARY.fn("simcache_gains")(
-        xs.data_ptr(), ys.data_ptr(), lm.data_ptr(), cu.data_ptr(),
-        h.data_ptr(), R, O, D, I, J, _metric_id(metric), float(gamma),
-        out.data_ptr(), *_launch_args(xs, ys, I, J, False),
-        stream_ptr(xs)), "simcache_gains")
-    gains_cuda.launches += 1
+    for a, b in groups:                 # one launch per group of caches
+        hg = h if len(groups) == 1 else h[:, a:b].contiguous()
+        check(LIBRARY.fn("simcache_gains")(
+            xs.data_ptr(), ys.data_ptr(), lm.data_ptr(), cu.data_ptr(),
+            hg.data_ptr(), R, O, D, I, b - a, _metric_id(metric),
+            float(gamma), out[a:b].data_ptr(),
+            *_launch_args(xs, ys, I, b - a, False), stream_ptr(xs)),
+            "simcache_gains")
+        gains_cuda.launches += 1
     return out
 
 
@@ -217,3 +237,23 @@ def placement_gains_matrix(ca: torch.Tensor, lam: torch.Tensor,
     lam, cur, ca = lam.float(), cur.float(), ca.float()
     return torch.cat([_fold_tile(ca[:, s:s + bo], lam, cur, h)
                       for s in range(0, ca.shape[1], bo)])
+
+
+def duel_virtual_costs(coords: torch.Tensor, ca: torch.Tensor | None,
+                       obj, virt_safe: torch.Tensor, h_slots: torch.Tensor,
+                       metric: str, gamma: float,
+                       has_ca: bool) -> torch.Tensor:
+    """(K,) virtual serving cost C_a(x_o, y_v[k]) + h(i, j(k)) of one
+    request — NETDUEL's per-step pricing (paper §5), the one-row case of
+    the gain oracle's C_a. With a materialized C_a the row gather is the
+    host policy's ``ca[o, virt]`` bit for bit; otherwise the row is the
+    shape-stable form (core/costs.py) every incremental op uses. The
+    plain scan (core/placement/netduel.py) calls it per step; kernel F
+    computes the same row in the same IEEE operations."""
+    if has_ca:
+        cac = ca[obj, virt_safe]
+    else:
+        from repro_torch.core import costs
+        cac = costs.approx_cost_stable(coords[obj].reshape(1, -1),
+                                       coords[virt_safe], metric, gamma)[0]
+    return cac + h_slots

@@ -8,16 +8,18 @@ Counterpart of ``repro.launch.serve``, with its flags and defaults.
 ``--streaming`` switches from the fixed-batch replay loop to the
 multi-stream driver (serve/stream.py): N Poisson request streams
 multiplexed into bucketed batches, placement refreshed through the
-double buffer in the background on a cadence (``--refresh-every``) and
-swapped in between batches.
+double buffer in the background on a cadence (``--refresh-every``, and
+on NETDUEL promotion churn with ``--netduel``) and swapped in between
+batches.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
-      --streaming --streams 4 --requests 1024
+      --streaming --streams 4 --requests 1024 --netduel
 
-The launcher runs on the card and exits non-zero without one. Flags of
-later slices are parsed as in the reference and raise
-``NotImplementedError`` naming their ROADMAP item when given:
-``--netduel`` (queue 1 item 9), ``--warm-start`` (item 12) and
+``--netduel`` runs the §5 online duels inside the engine (kernel F on
+the card) and lets their churn start refreshes. The launcher runs on
+the card and exits non-zero without one. Flags of later slices are
+parsed as in the reference and raise ``NotImplementedError`` naming
+their ROADMAP item when given: ``--warm-start`` (queue 1 item 12) and
 ``--scenario`` (item 13); ``--warm-polish-iters``, ``--strategy``,
 ``--cache-budget`` and ``--ingress`` matter only with those.
 """
@@ -42,8 +44,7 @@ SCENARIOS = ("isp", "scale_free", "watts_strogatz")
 STRATEGIES = ("lce", "lcd", "probcache", "sim-lru", "rnd-lru")
 
 # flag → the ROADMAP queue 1 item that ports what it switches on
-DEFERRED = (("netduel", "item 9"), ("warm_start", "item 12"),
-            ("scenario", "item 13"))
+DEFERRED = (("warm_start", "item 12"), ("scenario", "item 13"))
 
 
 def run_batch_loop(eng, cfg, dem, args) -> None:
@@ -80,8 +81,8 @@ def run_streaming(eng, cat, args) -> None:
           f"sizes), {st.requests_per_s:.0f} req/s, latency p50/p95/p99 "
           f"{st.p50_ms:.0f}/{st.p95_ms:.0f}/{st.p99_ms:.0f} ms")
     print(f"[serve] refreshes {st.refreshes_started} swaps {st.swaps} "
-          f"(max stall {st.max_swap_stall_s*1e3:.1f} ms); placement "
-          f"v{eng.placement.version}")
+          f"(max stall {st.max_swap_stall_s*1e3:.1f} ms) duel churn "
+          f"{st.placement_events}; placement v{eng.placement.version}")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -97,7 +98,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--refresh-every", type=int, default=16,
                     help="background re-solve cadence, in batches")
     ap.add_argument("--netduel", action="store_true",
-                    help="§5 online duels (not ported: queue 1 item 9)")
+                    help="§5 online duels; churn triggers refreshes too")
     ap.add_argument("--warm-start", action="store_true",
                     help="§4 continuous-limit warm start on every "
                          "refresh (not ported: queue 1 item 12)")
@@ -132,7 +133,8 @@ def main(argv: list[str] | None = None) -> None:
     params = model_api.init_params(cfg, 0, device=device)
     cat = catalog_api.embedding_catalog(n=1000, dim=32, seed=0)
     dem = demand_api.zipf(cat, alpha=1.0, seed=1)
-    ecfg = EngineConfig(algo=args.algo)
+    ecfg = EngineConfig(algo=args.algo, netduel=args.netduel,
+                        refresh_on_promotion=args.netduel)
     eng = SimCacheEngine(cfg, params, ecfg, cat.coords, device=device)
     eng.calibrate(torch.zeros((args.batch, 16), dtype=torch.int32,
                               device=device))

@@ -16,13 +16,20 @@ Counterpart of ``repro.serve.engine`` for this slice of the port:
 * the double buffer — ``request_refresh`` solves in a background thread
   while the active :class:`PlacementBuffer` keeps serving, and
   ``poll_refresh`` installs the result with one swap;
+* the online plane — with ``EngineConfig.netduel`` a
+  :class:`~repro_torch.core.placement.DuelPlane` (paper §5) observes
+  every served batch, priced by the fused lookup's costs at the bucket
+  shape (kernel F on the card); a promotion rebuilds the runtime cache
+  from the duel's slots (``placement_events`` counts these) and, with
+  ``refresh_on_promotion``, starts a background re-solve;
 * ``calibrate`` — times the repository prefill, sets the h costs in
   milliseconds and re-installs the held allocation at those costs.
 
 The repository is the dense decoder of repro_torch.models, its prefill
 attention on kernel E when the engine's ``cfg.use_flash_attention`` is
-set. Flags of later slices raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+set. The flags of later slices (``prune``, ``verify``, ``quantize``,
+``sharded``, ``warm_start``, ``strategy``, ``refresh_min_gain`` > 0)
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import demand as demand_api
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.objective import DeviceInstance, Instance
-from repro_torch.core.placement import (device_greedy,
+from repro_torch.core.placement import (DuelPlane, device_greedy,
                                         device_greedy_then_localswap,
                                         device_localswap, greedy,
                                         greedy_then_localswap, localswap)
@@ -88,17 +95,20 @@ class EngineConfig:
     quantize: bool = False        # not ported: queue 1 item 10
     device_placement: bool = True  # device-resident placement control plane
     swap_tol: float = 1e-3        # device LOCALSWAP accept margin
-    netduel: bool = False         # not ported: queue 1 item 9
+    netduel: bool = False         # §5 online duels on the device, per batch
+    duel_window: int = 512        # duel length in requests
+    duel_delta: float = 0.05      # relative promotion margin δ
+    duel_arm_prob: float = 0.25   # per-request arming probability
+    duel_seed: int = 0            # arming-randomness seed
     bucket: bool = True           # power-of-two batch bucketing
     min_bucket: int = 8           # smallest bucket (tiny batches coalesce)
-    refresh_on_promotion: bool = False  # not ported: queue 1 item 9
+    refresh_on_promotion: bool = False  # duel churn → background re-solve
     refresh_min_gain: float = 0.0  # > 0 not ported: queue 1 item 13
     warm_start: bool = False      # not ported: queue 1 item 12
     strategy: str | None = None   # not ported: queue 1 item 13
 
 
 _LATER_SLICES = (
-    ("netduel", "item 9"), ("refresh_on_promotion", "item 9"),
     ("prune", "item 10"), ("verify", "item 10"), ("quantize", "item 10"),
     ("sharded", "item 11"), ("warm_start", "item 12"),
     ("strategy", "item 13"), ("refresh_min_gain", "item 13"))
@@ -218,6 +228,8 @@ class SimCacheEngine:
         #                                   driver run's window maxes over
         self.last_predicted_cost: float | None = None
         self.solve_timings: dict = {}     # seconds of the last solve
+        self.duel: DuelPlane | None = None                # online §5 plane
+        self.placement_events = 0                         # duel churn count
 
     # -------------------------------------------------- data-plane state
     @property
@@ -265,6 +277,10 @@ class SimCacheEngine:
         if self.placement.slots is not None:
             self._rebuild_simcache(self.placement.slots,
                                    self.placement.slot_cache)
+            if self.duel is not None:
+                # the armed duel priced the old cost units
+                self._arm_duel(self.observed_instance(),
+                               self.placement.slots)
         return ms
 
     # ----------------------------------------------------- control plane
@@ -315,10 +331,24 @@ class SimCacheEngine:
         self.solve_timings = timings
         return slots, pred
 
+    def _arm_duel(self, inst: Instance, slots: np.ndarray) -> None:
+        """(Re-)arm the online §5 plane: the duel state lives on the
+        device and persists across serve() batches (reset on every
+        offline install)."""
+        duel_dinst = DeviceInstance.from_instance(
+            inst, materialize_ca=False, device=self.device)
+        self.duel = DuelPlane(
+            duel_dinst, slots, window=self.ecfg.duel_window,
+            delta=self.ecfg.duel_delta,
+            arm_prob=self.ecfg.duel_arm_prob, seed=self.ecfg.duel_seed)
+
     def _install(self, slots: np.ndarray, inst: Instance) -> None:
-        """Install a solved allocation into the active buffer (runs on
-        the serving thread — this *is* the swap)."""
+        """Install a solved allocation into the active buffer: rebuild
+        the runtime network, re-arm the duel plane (runs on the serving
+        thread — this *is* the swap)."""
         self._rebuild_simcache(slots, inst.slot_cache)
+        if self.ecfg.netduel:
+            self._arm_duel(inst, slots)
         self.refresh_count += 1
 
     def refresh_placement(self, algo: str | None = None,
@@ -398,7 +428,9 @@ class SimCacheEngine:
     def _rebuild_simcache(self, slots: np.ndarray,
                           slot_cache: np.ndarray | None = None) -> None:
         """(Re)build the runtime lookup network from an allocation and
-        install it into the placement buffer (version += 1)."""
+        install it into the placement buffer (version += 1) — shared by
+        the offline install, the duel's promotion churn and the
+        calibration rebuild."""
         if slot_cache is None:
             slot_cache = self.net.slot_layout()
         if self.custom_net:
@@ -424,9 +456,10 @@ class SimCacheEngine:
         """Serve a batch. request_ids index the catalog (their embeddings
         are the lookup keys); prompts (B, S) are the token batch for
         misses. ``ingress_ids`` says where each request entered (None →
-        ingress 0). With ``EngineConfig.bucket`` the lookup and the
-        miss-prefill run at the batch's power-of-two bucket shape,
-        padding masked out of every stat."""
+        ingress 0). With ``EngineConfig.bucket`` the lookup, the duel
+        observation and the miss-prefill run at the batch's power-of-two
+        bucket shape, padding masked out of every stat and of the duel
+        trajectory."""
         t_batch0 = time.perf_counter()
         request_ids = np.asarray(request_ids)
         n = len(request_ids)
@@ -459,6 +492,19 @@ class SimCacheEngine:
                 out[i] = self.responses.get(int(payloads[i]))
             self.stats.n_hits += int(hits.sum())
             miss_idx = np.nonzero(~hits)[0]
+            if self.duel is not None:
+                # online control plane: observe the batch in one scan,
+                # priced by the costs the lookup just computed — at the
+                # bucket shape, padded steps masked to no-ops
+                ids_b = _pad_rows(request_ids, res.cost.shape[0])
+                if self.duel.observe(ids_b, b1_ext=res.cost,
+                                     n_valid=n if bucket else None):
+                    self._rebuild_simcache(self.duel.slots_np)
+                    self.placement_events += 1
+                    if self.ecfg.refresh_on_promotion:
+                        # duel churn = demand drifted: start the
+                        # background re-solve (a no-op if one runs)
+                        self.request_refresh()
 
         if len(miss_idx):
             # repository: run the model on the miss sub-batch (padded to

@@ -24,13 +24,13 @@ multiplexes all of them into a single serving loop:
   the last batch is swapped in atomically *between* batches, and the
   swap stall is the only serving-thread cost of a placement refresh;
 * refreshes are triggered on a fixed cadence (``refresh_every``
-  batches); the engine's own trigger on NETDUEL promotion churn
-  (``EngineConfig.refresh_on_promotion``) arrives with ROADMAP queue 1
-  item 9.
+  batches) and, with ``EngineConfig.refresh_on_promotion``, by the
+  engine itself on NETDUEL promotion churn.
 
 :class:`DriverStats` aggregates the numbers the serving bench records:
 sustained requests/s, p50/p95/p99 batch latency, refresh/swap counts,
-swap stall totals, and the placement-version trajectory.
+swap stall totals, NETDUEL placement events, and the placement-version
+trajectory.
 
 Counterpart of ``repro.serve.stream``: arrivals, object ids and ingress
 ids come from the same per-stream numpy generators, so a port driver
@@ -102,6 +102,7 @@ class DriverStats:
     swaps: int = 0
     swap_stall_s: float = 0.0
     max_swap_stall_s: float = 0.0   # max over THIS run's swaps only
+    placement_events: int = 0       # NETDUEL promotion rebuilds this run
 
     @property
     def requests_per_s(self) -> float:
@@ -197,6 +198,7 @@ class StreamDriver:
         st = DriverStats()
         swaps0 = eng.swap_count
         stall0 = eng.swap_stall_s
+        events0 = eng.placement_events
         t_run0 = time.perf_counter()
         while st.n_requests < n_requests:
             ids, ings = self._next_batch(n_requests - st.n_requests)
@@ -208,8 +210,8 @@ class StreamDriver:
             st.batch_latencies_ms.append(
                 eng.stats.batch_latencies_ms[-1])
             # cadence trigger: start a background re-solve every k
-            # batches (the engine's own trigger on promotion churn
-            # arrives with NETDUEL, ROADMAP queue 1 item 9)
+            # batches (the engine triggers its own on promotion churn
+            # when refresh_on_promotion is set)
             if self.refresh_every and \
                     self._batches_run % self.refresh_every == 0:
                 if eng.request_refresh():
@@ -226,6 +228,7 @@ class StreamDriver:
         st.wall_s = time.perf_counter() - t_run0
         st.swaps = eng.swap_count - swaps0
         st.swap_stall_s = eng.swap_stall_s - stall0
+        st.placement_events = eng.placement_events - events0
         return st
 
     def drain_refresh(self) -> bool:

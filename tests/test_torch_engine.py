@@ -210,8 +210,7 @@ def test_observed_instance_cold_uniform_and_unfloored():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(netduel=True), dict(refresh_on_promotion=True), dict(prune="lsh"),
-    dict(verify=True), dict(quantize=True), dict(sharded=True),
+    dict(prune="lsh"), dict(verify=True), dict(quantize=True), dict(sharded=True),
     dict(warm_start=True), dict(strategy="lce"),
     dict(refresh_min_gain=1.0)])
 def test_unported_flags_raise(flag):

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core import catalog, costs, demand, topology
 from repro_torch.core.objective import DeviceInstance, Instance
-from repro_torch.core.placement import device_greedy, greedy
+from repro_torch.core.placement import device_greedy, device_netduel, greedy
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_blocked, flash_cuda,
                                                  flash_ref)
@@ -595,3 +595,191 @@ def test_gains_every_ingress_and_cache_count(cuda, I, J):
     c1 = G.gains_cuda(x, y, lam[:1], cur[:1], H[:1])
     assert torch.equal(gain_cuda(x, y, lam[0], cur[0],
                                  H[:1].expand(R, J).contiguous()), c1)
+
+
+# ------------------------------------------------- kernels C, D past 8 caches
+def _j_slices(J):
+    """Each group of 8 caches, and slices of at most 8 across groups."""
+    out = G._j_groups(J)
+    out += [(a, min(J, a + w)) for a, w in ((4, 8), (7, 2), (J - 3, 3),
+                                           (J // 2, 5))]
+    return sorted({s for s in out if s[1] - s[0] <= G.J_GROUP})
+
+
+@pytest.mark.parametrize("J", [9, 17, 32])
+@pytest.mark.parametrize("I", [1, 4])
+def test_gains_past_eight_caches(cuda, I, J):
+    """Kernel C at J > 8 (the scenario networks' 17–32 caches): ⌈J/8⌉
+    launches, against the plain version, and bitwise what J ≤ 8 slices
+    of H give the same columns (groups, and slices across them)."""
+    R, O, D = 333, 1000, 100
+    x, y, lam, cur, H, _ = _gain_inputs(cuda, 100 * I + J, R, O, D, I, J)
+    H[-1, ::7] = G.H_SENTINEL
+    n0 = G.gains_cuda.launches
+    got = G.gains_cuda(x, y, lam, cur, H)
+    assert G.gains_cuda.launches == n0 + -(-J // G.J_GROUP)
+    torch.testing.assert_close(
+        got, G._gains_tiles(x, y, lam, cur, H, "l2", 1.0).T,
+        rtol=5e-5, atol=5e-4)
+    for a, b in _j_slices(J):
+        part = G.gains_cuda(x, y, lam, cur, H[:, a:b].contiguous())
+        assert torch.equal(part, got[a:b]), (a, b)
+
+
+def test_gain_kernel_past_eight_caches(cuda):
+    """Kernel D at J 9: two launches, against its plain version, bitwise
+    its J ≤ 8 slices, and bitwise kernel C on equal H rows."""
+    R, O, D, J = 333, 1000, 100, 9
+    x, y, lam, cur, H, Hr = _gain_inputs(cuda, 909, R, O, D, 1, J)
+    Hr[::5, 3] = G.H_SENTINEL
+    n0 = gain_cuda.launches
+    got = gain_cuda(x, y, lam[0], cur[0], Hr)
+    assert gain_cuda.launches == n0 + 2
+    torch.testing.assert_close(got, gain_ref(x, y, lam[0], cur[0], Hr).T,
+                               rtol=5e-5, atol=5e-4)
+    for a, b in _j_slices(J):
+        part = gain_cuda(x, y, lam[0], cur[0], Hr[:, a:b].contiguous())
+        assert torch.equal(part, got[a:b]), (a, b)
+    c = G.gains_cuda(x, y, lam, cur, H)
+    assert torch.equal(gain_cuda(x, y, lam[0], cur[0],
+                                 H.expand(R, J).contiguous()), c)
+
+
+# ------------------------------------------------------ kernel F (duel scan)
+def _duel_instance(metric, gamma=1.0, n=700, dim=24, seed=1):
+    cat = catalog.embedding_catalog(n=n, dim=dim, seed=seed)
+    cat = catalog.Catalog(coords=cat.coords, metric=metric, gamma=gamma)
+    net = topology.tandem(k_leaf=24, k_parent=40, h=50.0, h_repo=400.0)
+    return Instance(net=net, cat=cat,
+                    dem=demand.zipf(cat, alpha=0.8, seed=seed + 1))
+
+
+def _assert_duel_bitwise(a, b):
+    for f in ("slots", "virt", "deadline", "real_sav", "virt_sav",
+              "b1_trace"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+    assert a.promotions == b.promotions
+    assert a.n_promotions == b.n_promotions
+    assert a.served_cost == b.served_cost
+    assert a.cost_trace == b.cost_trace
+
+
+def _expected_launches(st, T):
+    """One launch per promoting step, plus the one that reaches T."""
+    steps = sorted({e[0] for e in st.promotions})
+    return len(steps) + (0 if steps and steps[-1] == T - 1 else 1)
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
+@pytest.mark.parametrize("materialize", [True, False])
+def test_duel_kernel_matches_plain_scan(cuda, metric, materialize):
+    """Kernel F against the plain scan on the card, bitwise: events,
+    slots, virt, deadlines, both savings, the per-step served cost and
+    the cost trace; one launch per promoting step plus the last. On a
+    materialized C_a it is also the host policy, bit for bit."""
+    from repro_torch.core.placement import netduel
+    from repro_torch.kernels.duel import duel_scan_cuda
+    inst = _duel_instance(metric)
+    d = DeviceInstance.from_instance(inst, materialize_ca=materialize,
+                                     device=cuda)
+    T = 3000
+    kw = dict(n_iters=T, seed=3, window=300, arm_prob=0.35,
+              record_events=True, record_every=250)
+    n0 = duel_scan_cuda.launches
+    got = device_netduel(d, **kw)
+    launches = duel_scan_cuda.launches - n0
+    ref = device_netduel(d, plain=True, **kw)
+    assert duel_scan_cuda.launches - n0 == launches
+    assert got.n_promotions > 0
+    _assert_duel_bitwise(got, ref)
+    assert launches == _expected_launches(got, T)
+    if materialize:
+        host = netduel(inst, **{k: v for k, v in kw.items()
+                                if k != "record_events"})
+        assert host.promotions == got.promotions
+        np.testing.assert_array_equal(host.sw.slots, got.slots)
+        np.testing.assert_array_equal(host.virt_sav, got.virt_sav)
+
+
+@pytest.mark.parametrize("gamma", [0.5, 2.0, 0.7])
+def test_duel_kernel_gamma(cuda, gamma):
+    """d^γ in F as torch's pow computes it (its special cases 0.5 and 2,
+    then powf): the streamed scan bitwise the plain one."""
+    inst = _duel_instance("l2", gamma=gamma)
+    d = DeviceInstance.from_instance(inst, materialize_ca=False, device=cuda)
+    kw = dict(n_iters=2000, seed=5, window=200, arm_prob=0.4,
+              record_events=True)
+    got = device_netduel(d, **kw)
+    _assert_duel_bitwise(got, device_netduel(d, plain=True, **kw))
+    assert got.n_promotions > 0
+
+
+@pytest.mark.parametrize("materialize", [True, False])
+def test_duel_kernel_masked_windows(cuda, materialize):
+    """``DuelPlane`` as the engine drives it — bucketed batches, padding
+    rows, external b1 prices — through F and through the plain scan: the
+    carries bitwise after every batch, and the padded plane bitwise the
+    unpadded one."""
+    from repro_torch.core.placement import DuelPlane
+    inst = _duel_instance("l2", n=900)
+    d = DeviceInstance.from_instance(inst, materialize_ca=materialize,
+                                     device=cuda)
+    slots0 = np.random.default_rng(3).integers(0, inst.cat.n, 64)
+    kw = dict(window=150, arm_prob=0.6, seed=9)
+    planes = [DuelPlane(d, slots0, **kw), DuelPlane(d, slots0, plain=True,
+                                                    **kw),
+              DuelPlane(d, slots0, **kw)]
+    rng = np.random.default_rng(1)
+    best1 = planes[0].carry.best1[0].cpu().numpy()
+    for n in (37, 64, 5, 100, 128, 77, 256, 3):
+        objs, _ = inst.dem.sample(n, rng)
+        b1 = best1[objs] * np.float32(1.02)
+        m = 8 if n <= 8 else 1 << (n - 1).bit_length()
+        objs_p = np.concatenate([objs, np.repeat(objs[:1], m - n)])
+        b1_p = np.concatenate([b1, np.repeat(b1[:1], m - n)])
+        changed = [p.observe(objs_p, b1_ext=torch.as_tensor(b1_p,
+                                                            device=cuda),
+                             n_valid=n) for p in planes[:2]]
+        changed.append(planes[2].observe(objs, b1_ext=b1))
+        assert changed[0] == changed[1] == changed[2]
+        for other in planes[1:]:
+            for a, b in zip(planes[0].carry, other.carry):
+                assert torch.equal(a, b)
+            assert planes[0].served_cost == other.served_cost
+    assert planes[0].n_promotions > 0
+
+
+@pytest.mark.parametrize("materialize", [True, False])
+def test_duel_kernel_settle_past_promote_cap(cuda, materialize):
+    """Twelve duels expire with wins at one step: F settles them in one
+    launch, the full rebuild re-arms, and F, the plain scan and the full
+    re-arm end bitwise equal."""
+    import importlib
+    nd = importlib.import_module("repro_torch.core.placement.netduel")
+    from repro_torch.kernels.duel import DuelXs
+    n_slots, w = 12, 5
+    coords = np.zeros((n_slots + 2, 1), np.float32)
+    coords[1:] = 100.0
+    cat = catalog.Catalog(coords=coords, metric="l1")
+    inst = Instance(net=topology.single_cache(k=n_slots, h_repo=1000.0),
+                    cat=cat, dem=demand.uniform(cat))
+    d = DeviceInstance.from_instance(inst, materialize_ca=materialize,
+                                     device=cuda)
+    objs = np.r_[np.arange(1, n_slots + 1), n_slots + 1, 1, 2]
+    ts = np.r_[np.zeros(n_slots), w, w + 1, w + 2].astype(np.int64)
+    T = len(objs)
+    xs = DuelXs(*(torch.as_tensor(a, device=cuda) for a in (
+        objs, np.zeros(T, np.int64), ts, np.ones(T, bool),
+        np.zeros(T, np.float32))))
+    h_slots, on_path = nd._scan_args(d)
+    runs = [nd._duel_scan(d, h_slots, on_path,
+                          nd._duel_carry(d, np.zeros(n_slots, np.int64)),
+                          xs, float(np.float32(1.05)), w, True, False, 0,
+                          incremental=inc, kernel=k)
+            for k, inc in ((True, True), (False, True), (True, False))]
+    carry, out = runs[0]
+    assert int(carry.n_prom.sum()) == n_slots > nd.PROMOTE_CAP
+    for c2, o2 in runs[1:]:
+        for a, b in zip(carry, c2):
+            assert torch.equal(a, b)
+        assert torch.equal(out.b1, o2.b1)

@@ -6,7 +6,8 @@ Its two loops run on a CPU engine at the reference launcher's sizes
 Zipf α = 1.0, batch 16, 256 requests, ``calibrate()`` first); the flags
 of later slices raise ``NotImplementedError`` naming their ROADMAP item;
 and the command itself refuses to run without a card. Both loops run on
-the card in chip_smoke.py's ``launch`` phase.
+the card in chip_smoke.py's ``launch`` phase. ``--netduel`` is held in
+tests/test_torch_duel_engine.py.
 """
 import os
 import subprocess
@@ -75,7 +76,7 @@ def test_streaming_serves_and_swaps(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--netduel"], "item 9"), (["--warm-start"], "item 12"),
+    (["--warm-start"], "item 12"),
     (["--scenario", "isp"], "item 13"),
     (["--scenario", "scale_free", "--strategy", "sim-lru"], "item 13")])
 def test_deferred_flags_raise(flags, item):

@@ -2,8 +2,9 @@
 signature counter, the multi-stream driver, and a differential against
 the JAX reference's driver.
 
-Mirrors the non-NETDUEL parts of tests/test_streaming.py (NETDUEL is
-ROADMAP queue 1 item 9: every port engine here has it off). The
+Mirrors the non-NETDUEL parts of tests/test_streaming.py (the NETDUEL
+engine and driver are held in tests/test_torch_duel_engine.py; every
+port engine here has it off). The
 reference counts *traces* of its jitted lookup; the port counts the
 first call of ``fused_lookup`` with each new signature (shapes, dtypes,
 static arguments), in ``repro_torch.tracecount``.
@@ -237,6 +238,7 @@ class _Recorder:
         self.calls = []
         self.swap_count = 0
         self.swap_stall_s = self.last_swap_stall_s = 0.0
+        self.placement_events = 0
         self.placement = type("P", (), {"version": 0})()
 
     def serve(self, ids, prompts, ingress_ids=None):
