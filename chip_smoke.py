@@ -65,6 +65,22 @@ Phases, one line each before the last:
    predicted C(A), the looped lookup (kernel B, its own path, counted
    alone) serving the last warm batch as the fused one did, and
    ``calibrate()`` timed once.
+   Then ``warmstart``: the same engine with ``warm_start`` on, on the
+   same weights and batches — every refresh the §4 continuous-limit
+   warm start (solve and Prop 4.2 band map in NumPy, a 512-request
+   LOCALSWAP polish on the card): its refresh split into solve, map and
+   polish, its swaps, its predicted C(A) beside the cascade's, warm
+   serving, one background refresh; launches counted over the run
+   (kernel A's among them). The warm start of the refresh's window is
+   then held against the same call on a CPU ``DeviceInstance`` over the
+   first 64 polish requests: ``slots_warm`` bitwise, the polished slots
+   equal or first parted at an f32 edge.
+   Then ``warm_1e6``: the warm start at 10⁶ objects (the reference
+   suite's chain, tandem and tree on a 1000 × 1000 grid, and the §4.4
+   tandem with arrivals at both nodes), unpolished: seconds of the
+   solve and the map, a valid banded allocation, the card's streamed
+   C(A) against the empty allocation's, a total under 60 s, and the
+   tandem's f32 descent on the card held against the CPU's.
 7. ``prefill`` — granite-3-2b at full width, B = 2, S = 2048 (bf16),
    with ``use_flash_attention`` on and then off on the same weights:
    logit agreement, both times, kernel E's launches per flash forward
@@ -83,13 +99,14 @@ Phases, one line each before the last:
    duel plane observed is replayed through a second ``DuelPlane`` on the
    plain scan, whose carry must equal the engine's bitwise.
 9. ``launch`` — ``python -m repro_torch.launch.serve`` in a subprocess,
-   batch loop, streaming, and streaming with ``--netduel``; each must
-   exit 0 and print its final ``[serve] … hit-rate`` line (and the duel
-   churn with ``--netduel``).
+   batch loop, streaming, streaming with ``--netduel``, and the batch
+   loop with ``--warm-start``; each must exit 0 and print its final
+   ``[serve] … hit-rate`` line (and the duel churn with ``--netduel``).
 10. ``kernels`` — one JSON object with every kernel's numbers; A's and
    B's entries also carry each of their two shapes (K 448 and 65,536),
    C's its two (R = O = 10⁵ and 20,000) and its times past 8 caches; F's
-   launches are those of the ``duel_engine`` run.
+   launches are those of the ``duel_engine`` run; A's entry also carries
+   its launches in the ``warmstart`` run.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script then exits non-zero and prints no result. It
@@ -678,7 +695,36 @@ def phase_bigcache(torch, cat, dem):
     return res
 
 
+# the engine phase's serving: batches of 256 requests, 16-token prompts
+ENGINE_BATCHES, ENGINE_BATCH, ENGINE_SEQ = 16, 256, 16
+
+
+def serve_batches(eng, cfg, dem, seed):
+    """Serve the engine phase's 16 batches drawn from ``dem`` with
+    ``seed``; returns the stats row (then reset) and the last batch's
+    ids."""
+    r = np.random.default_rng(seed)
+    t = time.perf_counter()
+    last = None
+    for _ in range(ENGINE_BATCHES):
+        ids, _ = dem.sample(ENGINE_BATCH, r)
+        last = ids
+        out, _ = eng.serve(ids, r.integers(0, cfg.vocab,
+                                           (ENGINE_BATCH, ENGINE_SEQ)))
+        if len(out) != ENGINE_BATCH:
+            raise RuntimeError("serve() lost requests")
+    s = eng.stats
+    row = dict(hit_rate=s.hit_rate, mean_cost=s.mean_cost,
+               model_calls=s.model_calls, requests=s.n_requests,
+               seconds=time.perf_counter() - t, p50_ms=s.p50_ms,
+               p99_ms=s.p99_ms)
+    eng.stats = type(eng.stats)()
+    return row, last
+
+
 def phase_engine(torch, cat, dem):
+    """The main path; returns its launch counts, the model's weights
+    (the ``warmstart`` phase reuses them) and the cascade's refresh."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.model import init_params
@@ -692,34 +738,16 @@ def phase_engine(torch, cat, dem):
     ecfg = EngineConfig(h_ici=15.0, h_dcn=150.0, h_model=1000.0)
     eng = SimCacheEngine(cfg, params, ecfg, cat.coords)
     rng = np.random.default_rng(0)
-    n_batches, batch, seq = 16, 256, 16
-
-    def phase(seed):
-        r = np.random.default_rng(seed)
-        t = time.perf_counter()
-        last = None
-        for _ in range(n_batches):
-            ids, _ = dem.sample(batch, r)
-            last = ids
-            out, _ = eng.serve(ids, r.integers(0, cfg.vocab, (batch, seq)))
-            if len(out) != batch:
-                raise RuntimeError("serve() lost requests")
-        s = eng.stats
-        row = dict(hit_rate=s.hit_rate, mean_cost=s.mean_cost,
-                   model_calls=s.model_calls, requests=s.n_requests,
-                   seconds=time.perf_counter() - t, p50_ms=s.p50_ms,
-                   p99_ms=s.p99_ms)
-        eng.stats = type(eng.stats)()
-        return row, last
+    seq = ENGINE_SEQ
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                        # the main path's run
-    cold, _ = phase(1)
+    cold, _ = serve_batches(eng, cfg, dem, 1)
     t = time.perf_counter()
     pred = eng.refresh_placement()
     refresh_s = time.perf_counter() - t
     timings = dict(eng.solve_timings)
-    warm, last_ids = phase(2)
+    warm, last_ids = serve_batches(eng, cfg, dem, 2)
     v0 = eng.placement_version
     started = eng.request_refresh()
     done = eng.wait_refresh(timeout=900)
@@ -795,7 +823,234 @@ def phase_engine(torch, cat, dem):
     if not all(checks):
         raise RuntimeError(f"engine phase failed its checks: {checks}")
     # kernel B runs on the looped path only, so its count is that run's
-    return dict(counts, knn=twin_counts["knn"])
+    return dict(counts, knn=twin_counts["knn"]), params, dict(
+        predicted_cost=pred, refresh_s=refresh_s, **timings)
+
+# requests of the polish window held on the card against the CPU, a
+# cut of the engine's 512: on an H100 host's CPU 64 take ~10 s at 10⁵
+# objects
+HOLD_POLISH = 64
+# relative bound on an f32 ΔC sum's difference across devices, for a
+# decision shown to sit at an edge (P1: the card's distances are one ulp
+# from the CPU's, and each ΔC sums many of them)
+EDGE_RTOL = 1e-5
+
+
+def _polish_divergence(inst, slots0, n_iters: int, tol: float, devices):
+    """Walk the device polish window from ``slots0`` on two devices in
+    lockstep (the moves of ``device_localswap``, incremental re-arm);
+    return the first step whose decision differs, with each side's ΔC at
+    both sides' picks, or None."""
+    import torch
+    from repro_torch.core.objective import DeviceInstance
+    from repro_torch.core.placement.device import (DeviceSwapState,
+                                                   _accepts, _swap_deltas)
+    from repro_torch.core.placement.localswap import emulated_stream
+    _, _, objs, ings = emulated_stream(inst, n_iters, 0, slots0, None)
+    sides = []
+    for dev in devices:
+        d = DeviceInstance.from_instance(inst, materialize_ca=False,
+                                         device=dev)
+        sides.append((d, DeviceSwapState.init(d, slots0)))
+    for t, (o, i) in enumerate(zip(objs.tolist(), ings.tolist())):
+        deltas = [_swap_deltas(d, st.best1, st.arg1, st.best2, o, i).cpu()
+                  for d, st in sides]
+        ys = [int(torch.argmin(x)) for x in deltas]
+        acc = [_accepts(x[y], tol) for x, y in zip(deltas, ys)]
+        if (acc[0] or acc[1]) and (ys[0], acc[0]) != (ys[1], acc[1]):
+            return dict(step=t, obj=o, y=ys, accept=acc, delta_at=[
+                [float(x[y]) for y in ys] for x in deltas])
+        if acc[0]:
+            for d, st in sides:
+                y = torch.tensor(ys[0], device=d.device)
+                st.slots = st.slots.index_put((y,), torch.tensor(
+                    o, dtype=torch.int64, device=d.device))
+                st._set_pre(d, d.best_two_delta(
+                    st.b1p, st.a1p, st.b2p, st.a2p, st.slots, y[None]))
+    return None
+
+
+def _at_edge(div: dict, tol: float) -> bool:
+    """A divergence of two polish windows is an f32 edge, not a fault,
+    when the sides' ΔC agree within EDGE_RTOL and either straddle the
+    accept threshold −tol (one side accepts, the other does not) or put
+    the two picks within that bound of each other on both sides (a
+    near-tie of slots)."""
+    (a0, a1), (b0, b1) = div["delta_at"]
+    vals = [a0, a1, b0, b1]
+    eps = EDGE_RTOL * max(max(abs(v) for v in vals), tol)
+    agree = abs(a0 - b0) <= eps and abs(a1 - b1) <= eps
+    thr = -float(np.float32(tol))
+    if div["accept"][0] != div["accept"][1]:
+        mine = [a0, b1]                # each side's ΔC at its own pick
+        return agree and min(mine) < thr <= max(mine) and \
+            max(mine) - min(mine) <= 2 * eps
+    return agree and abs(a0 - a1) <= eps and abs(b0 - b1) <= eps
+
+
+def phase_warmstart(torch, cat, dem, params, cascade):
+    """The engine phase's configuration with ``warm_start`` on, on the
+    engine phase's weights: the same cold batches, ``refresh_placement()``
+    (the §4 warm start: solve and band map in NumPy, the polish on the
+    card), the same warm batches and one background refresh; launches
+    counted over the run. Then the warm start of that refresh's window
+    held against the same call on a CPU ``DeviceInstance``, over the
+    first HOLD_POLISH polish requests."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.objective import DeviceInstance
+    from repro_torch.core.placement import warmstart
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import EngineConfig, SimCacheEngine
+
+    cfg = get_config("granite-3-2b")
+    ecfg = EngineConfig(h_ici=15.0, h_dcn=150.0, h_model=1000.0,
+                        warm_start=True)
+    eng = SimCacheEngine(cfg, params, ecfg, cat.coords)
+    reset_launch_counts()                        # this path's run
+    cold, _ = serve_batches(eng, cfg, dem, 1)
+    inst = eng.observed_instance()               # the window it solves
+    t = time.perf_counter()
+    pred = eng.refresh_placement()
+    refresh_s = time.perf_counter() - t
+    timings = dict(eng.solve_timings)
+    warm, _ = serve_batches(eng, cfg, dem, 2)
+    v0 = eng.placement_version
+    started = eng.request_refresh()
+    done = eng.wait_refresh(timeout=900)
+    swapped = eng.poll_refresh()
+    bg = dict(started=started, done=done, swapped=swapped,
+              version=eng.placement_version,
+              predicted_cost=eng.last_predicted_cost, **eng.solve_timings)
+    counts = launch_counts()                     # read just after
+
+    red = warmstart.classify_topology(inst.net, gamma=inst.cat.gamma)
+    reps, hold = {}, dict(polish_iters=HOLD_POLISH)
+    for dev in ("cuda", "cpu"):
+        d = DeviceInstance.from_instance(inst, materialize_ca=False,
+                                         device=dev)
+        t = time.perf_counter()
+        reps[dev] = warmstart.warm_start(inst, reduction=red, dinst=d,
+                                         polish_iters=HOLD_POLISH,
+                                         tol=ecfg.swap_tol)
+        hold[f"{dev}_s"] = time.perf_counter() - t
+    a, b = reps["cuda"], reps["cpu"]
+    hold.update(kind=a.kind, swaps=[a.n_swaps, b.n_swaps],
+                slots_warm_equal=bool(np.array_equal(a.slots_warm,
+                                                     b.slots_warm)),
+                slots_equal=bool(np.array_equal(a.slots, b.slots)))
+    if not hold["slots_equal"]:
+        div = _polish_divergence(inst, a.slots_warm, HOLD_POLISH,
+                                 ecfg.swap_tol, ("cuda", "cpu"))
+        hold["divergence"] = div
+        hold["at_edge"] = div is not None and _at_edge(div, ecfg.swap_tol)
+
+    c_pred = cascade["predicted_cost"]
+    res = dict(catalog=cat.n, cold=cold, refresh_s=refresh_s, **timings,
+               predicted_cost=pred, cascade_predicted_cost=c_pred,
+               gap_to_cascade=(pred - c_pred) / c_pred,
+               cascade_refresh_s=cascade["refresh_s"], warm=warm,
+               background=bg, launches=counts, hold=hold)
+    log("warmstart", **res)
+    checks = [counts["fused_lookup"] > 0, warm["hit_rate"] > 0,
+              warm["mean_cost"] < ecfg.h_model, timings["warm_swaps"] >= 0,
+              started and done and swapped and bg["version"] == v0 + 1,
+              hold["slots_warm_equal"],
+              hold["slots_equal"] or hold["at_edge"]]
+    if not all(checks):
+        raise RuntimeError(f"warmstart phase failed its checks: {checks}")
+    return counts
+
+
+def warm_instance(topo: str, O: int, k: int = 64):
+    """The reference warm-start suite's instances (tests/test_warmstart.py
+    ``make_instance``): grid catalog of side √O, Gaussian demand of
+    σ = L/4, k slots a cache — and the §4.4 tandem with arrivals at both
+    nodes on the same catalog."""
+    import math
+    from repro_torch.core import catalog as catalog_api
+    from repro_torch.core import demand as demand_api
+    from repro_torch.core import topology as topology_api
+    from repro_torch.core.objective import Instance
+    L = math.isqrt(O)
+    cat = catalog_api.grid(L=L)
+    n_ingress = 1
+    if topo == "tandem":
+        net = topology_api.tandem(k_leaf=k, k_parent=k, h=2.0, h_repo=100.0)
+    elif topo == "chain":
+        net = topology_api.chain(3, [k, k, k], [0.0, 2.0, 6.0], 100.0)
+    elif topo == "tandem_both":
+        net, n_ingress = topology_api.tandem_both(k, k, 2.0, 100.0), 2
+    else:
+        net = topology_api.equi_depth_tree(branching=2, depth=1,
+                                           k_per_level=[k, k],
+                                           h_per_level=[0.0, 3.0],
+                                           h_repo=100.0)
+        n_ingress = 2
+    dem = demand_api.gaussian_grid(cat, sigma=L / 4, n_ingress=n_ingress)
+    return Instance(net=net, cat=cat, dem=dem)
+
+
+def _banded_valid(inst, rep) -> bool:
+    """Every slot a distinct in-range object of its cache, and every
+    chain-position cache inside its Prop 4.2 band window."""
+    from repro_torch.core.placement import warmstart
+    n = inst.cat.n
+    ok = rep.slots_warm.min() >= 0 and rep.slots_warm.max() < n
+    for j in range(inst.net.n_caches):
+        stored = rep.slots_warm[inst.slot_cache == j]
+        ok &= len(np.unique(stored)) == int(inst.net.capacities[j])
+    rank_of = np.empty(n, np.int64)
+    rank_of[rep.order] = np.arange(n)
+    for p, caches in enumerate(rep.groups):
+        for j in caches:
+            lo, hi = warmstart.rank_window(
+                n, int(rep.bounds[p]), int(rep.bounds[p + 1]),
+                int(inst.net.capacities[j]))
+            r = rank_of[rep.slots_warm[inst.slot_cache == j]]
+            ok &= r.min() >= lo and r.max() < hi
+    return bool(ok)
+
+
+def phase_warm_1e6(torch):
+    """The warm start at 10⁶ objects, where no discrete solver runs: the
+    reference suite's chain, tandem and tree (grid L = 1000, σ = L/4,
+    k = 64) and the §4.4 tandem with arrivals at both nodes, unpolished.
+    Each allocation is valid and banded, and the card's streamed C(A)
+    beats the empty allocation's; the tandem's descent on the card is
+    held against the CPU's on the same inputs."""
+    from repro_torch.core.objective import DeviceInstance
+    from repro_torch.core.placement import warmstart
+    rows = []
+    for topo in ("chain", "tandem", "tree", "tandem_both"):
+        inst = warm_instance(topo, 1_000_000)
+        rep = warmstart.warm_start(inst, polish_iters=0)
+        t = time.perf_counter()
+        cost = DeviceInstance.from_instance(
+            inst, materialize_ca=False).total_cost(rep.slots)
+        rows.append(dict(topology=topo, kind=rep.kind, solve_s=rep.solve_s,
+                         map_s=rep.map_s, total_s=rep.total_s,
+                         total_cost=cost, empty_cost=inst.empty_cost(),
+                         cost_s=time.perf_counter() - t,
+                         valid=_banded_valid(inst, rep)))
+    tandem = inst                                # the last: tandem_both
+    red = warmstart.classify_topology(tandem.net)
+    sols, hold = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        sols[dev] = warmstart.solve_continuous(tandem, red, device=dev)
+        hold[f"{dev}_s"] = time.perf_counter() - t
+    a, b = sols["cuda"], sols["cpu"]
+    last_step = 0.05 / np.sqrt(1.0 + 2999 / 100.0)
+    hold.update(regions=tandem.cat.n, max_abs_dw1=float(np.abs(
+        a.w1 - b.w1).max()), last_step=last_step,
+        rel_dcost=abs(a.cost - b.cost) / abs(b.cost))
+    log("warm_1e6", rows=rows, tandem_both_descent=hold)
+    checks = [r["valid"] and r["total_cost"] < r["empty_cost"]
+              and r["total_s"] < 60.0 for r in rows]
+    checks += [hold["max_abs_dw1"] <= last_step, hold["rel_dcost"] <= 1e-5]
+    if not all(checks):
+        raise RuntimeError(f"warm_1e6 phase failed its checks: {checks}")
+
 
 # (B, S): the long prefills (the last ragged), then the stream phase's
 # miss-prefill buckets of 128-token prompts
@@ -1440,15 +1695,17 @@ def phase_stream(torch, params):
 def phase_launch():
     """The command-line entry point, as a user runs it, in a subprocess
     of its own (its kernel launches are its own, counted nowhere): the
-    batch loop, streaming, and streaming with ``--netduel``, whose
-    printout must carry the duel churn."""
+    batch loop, streaming, streaming with ``--netduel``, whose printout
+    must carry the duel churn, and the batch loop with
+    ``--warm-start``."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     runs = []
     for extra in (["--requests", "256"],
                   ["--streaming", "--streams", "4", "--requests", "1024"],
                   ["--streaming", "--streams", "4", "--requests", "1024",
-                   "--netduel"]):
+                   "--netduel"],
+                  ["--requests", "256", "--warm-start"]):
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
                "granite-3-2b", *extra]
         t = time.perf_counter()
@@ -1514,9 +1771,12 @@ def main() -> int:
     phase_stable(torch, cat.coords)
     phase_bigcache(torch, cat, dem)
     f = phase_duel(torch, cat, dem, clock_hz)
-    counts = phase_engine(torch, cat, dem)
+    counts, params, cascade = phase_engine(torch, cat, dem)
+    warm_counts = phase_warmstart(torch, cat, dem, params, cascade)
+    del params
     gc.collect()                                  # the engine's model
     torch.cuda.empty_cache()
+    phase_warm_1e6(torch)
     params = phase_prefill(torch)
     stream_counts = phase_stream(torch, params)
     duel_counts = phase_duel_engine(torch, params)
@@ -1553,6 +1813,8 @@ def main() -> int:
             launches=counts[r["name"]], **{k: r[k] for k in timed}))
         if "device_ms" in r:
             kernels[-1]["device_ms"] = r["device_ms"]
+        if r["name"] == "fused_lookup":          # the warm start's path
+            kernels[-1]["launches_warmstart"] = warm_counts["fused_lookup"]
         if r["name"] in shapes:        # A, B: K 448, 65,536; C: O 10⁵, 2e4
             dims = ("R", "O", "D") if "R" in r else ("Q", "K", "D")
             kernels[-1]["shapes"] = [

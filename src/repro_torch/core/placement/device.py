@@ -165,11 +165,11 @@ def device_greedy(dinst: DeviceInstance, topk: int = DEFAULT_TOPK,
 
 
 # --------------------------------------------------------------- localswap
-def _swap_argmin(dinst: DeviceInstance, best1, arg1, best2, obj: int,
-                 ingress: int):
-    """(argmin slot y, ΔC(y)) of replacing slot y with ``obj`` for a
-    request at ``ingress`` — the device mirror of localswap.swap_deltas
-    + np.argmin (lowest-slot tie-break)."""
+def _swap_deltas(dinst: DeviceInstance, best1, arg1, best2, obj: int,
+                 ingress: int) -> torch.Tensor:
+    """(K,) ΔC(y) of replacing slot y with ``obj`` for a request at
+    ``ingress``, +inf off its forwarding path — the device mirror of
+    localswap.swap_deltas."""
     coords, ca, metric, gamma, has_ca = dinst._ca_args()
     lam, H, slot_cache = dinst.lam, dinst.H, dinst.slot_cache
     col = _ca_column(coords, ca, obj, metric, gamma, has_ca)
@@ -191,7 +191,14 @@ def _swap_argmin(dinst: DeviceInstance, best1, arg1, best2, obj: int,
                             accumulate=True)
     delta = delta + S[slot_cache]
     on_path = torch.isfinite(H[ingress])[slot_cache]
-    delta = torch.where(on_path, delta, torch.inf)
+    return torch.where(on_path, delta, torch.inf)
+
+
+def _swap_argmin(dinst: DeviceInstance, best1, arg1, best2, obj: int,
+                 ingress: int):
+    """(argmin slot y, ΔC(y)) — :func:`_swap_deltas` + np.argmin's
+    lowest-slot tie-break."""
+    delta = _swap_deltas(dinst, best1, arg1, best2, obj, ingress)
     y = torch.argmin(delta)
     return y, delta[y]
 

@@ -16,12 +16,15 @@ batches.
       --streaming --streams 4 --requests 1024 --netduel
 
 ``--netduel`` runs the §5 online duels inside the engine (kernel F on
-the card) and lets their churn start refreshes. The launcher runs on
-the card and exits non-zero without one. Flags of later slices are
-parsed as in the reference and raise ``NotImplementedError`` naming
-their ROADMAP item when given: ``--warm-start`` (queue 1 item 12) and
-``--scenario`` (item 13); ``--warm-polish-iters``, ``--strategy``,
-``--cache-budget`` and ``--ingress`` matter only with those.
+the card) and lets their churn start refreshes. ``--warm-start`` solves
+every refresh by the §4 continuous-limit warm start (an analytic solve,
+the Prop 4.2 band map and a LOCALSWAP polish of
+``--warm-polish-iters`` requests) in place of the discrete solver. The
+launcher runs on the card and exits non-zero without one. A flag of a
+later slice is parsed as in the reference and raises
+``NotImplementedError`` naming its ROADMAP item when given:
+``--scenario`` (queue 1 item 13); ``--strategy``, ``--cache-budget``
+and ``--ingress`` matter only with it.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ SCENARIOS = ("isp", "scale_free", "watts_strogatz")
 STRATEGIES = ("lce", "lcd", "probcache", "sim-lru", "rnd-lru")
 
 # flag → the ROADMAP queue 1 item that ports what it switches on
-DEFERRED = (("warm_start", "item 12"), ("scenario", "item 13"))
+DEFERRED = (("scenario", "item 13"),)
 
 
 def run_batch_loop(eng, cfg, dem, args) -> None:
@@ -101,7 +104,8 @@ def parser() -> argparse.ArgumentParser:
                     help="§5 online duels; churn triggers refreshes too")
     ap.add_argument("--warm-start", action="store_true",
                     help="§4 continuous-limit warm start on every "
-                         "refresh (not ported: queue 1 item 12)")
+                         "refresh (analytic solve + Prop 4.2 band map + "
+                         "bounded polish instead of the O(O·J) solver)")
     ap.add_argument("--warm-polish-iters", type=int, default=512,
                     help="LOCALSWAP polish window after the warm start")
     ap.add_argument("--scenario", default=None, choices=SCENARIOS,
@@ -115,6 +119,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ingress", type=int, default=4,
                     help="number of ingress nodes (with --scenario)")
     return ap
+
+
+def engine_config(args) -> EngineConfig:
+    """The engine configuration the launcher's flags select."""
+    return EngineConfig(algo=args.algo, netduel=args.netduel,
+                        refresh_on_promotion=args.netduel,
+                        warm_start=args.warm_start,
+                        warm_polish_iters=args.warm_polish_iters)
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -133,9 +145,8 @@ def main(argv: list[str] | None = None) -> None:
     params = model_api.init_params(cfg, 0, device=device)
     cat = catalog_api.embedding_catalog(n=1000, dim=32, seed=0)
     dem = demand_api.zipf(cat, alpha=1.0, seed=1)
-    ecfg = EngineConfig(algo=args.algo, netduel=args.netduel,
-                        refresh_on_promotion=args.netduel)
-    eng = SimCacheEngine(cfg, params, ecfg, cat.coords, device=device)
+    eng = SimCacheEngine(cfg, params, engine_config(args), cat.coords,
+                         device=device)
     eng.calibrate(torch.zeros((args.batch, 16), dtype=torch.int32,
                               device=device))
 

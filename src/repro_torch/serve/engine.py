@@ -12,7 +12,11 @@ Counterpart of ``repro.serve.engine`` for this slice of the port:
   problem on the observed demand window: by default the cascade (GREEDY
   seeded by the gain oracle, kernel C, then a LOCALSWAP polish) on a
   streaming ``DeviceInstance`` (``EngineConfig.device_placement``), or
-  the NumPy oracles with ``device_placement=False``;
+  the NumPy oracles with ``device_placement=False``; with
+  ``EngineConfig.warm_start`` a topology that reduces to a §4
+  continuous program (the built-in hierarchy, a chain, always does) is
+  solved by the continuous-limit pipeline of placement/warmstart.py
+  instead (solve, Prop 4.2 band map, a bounded LOCALSWAP polish);
 * the double buffer — ``request_refresh`` solves in a background thread
   while the active :class:`PlacementBuffer` keeps serving, and
   ``poll_refresh`` installs the result with one swap;
@@ -28,8 +32,8 @@ Counterpart of ``repro.serve.engine`` for this slice of the port:
 The repository is the dense decoder of repro_torch.models, its prefill
 attention on kernel E when the engine's ``cfg.use_flash_attention`` is
 set. The flags of later slices (``prune``, ``verify``, ``quantize``,
-``sharded``, ``warm_start``, ``strategy``, ``refresh_min_gain`` > 0)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+``sharded``, ``strategy``, ``refresh_min_gain`` > 0) raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ from repro_torch.core.objective import DeviceInstance, Instance
 from repro_torch.core.placement import (DuelPlane, device_greedy,
                                         device_greedy_then_localswap,
                                         device_localswap, greedy,
-                                        greedy_then_localswap, localswap)
+                                        greedy_then_localswap, localswap,
+                                        warmstart)
 from repro_torch.core.simcache import SimCacheNetwork
 from repro_torch.core.topology import CacheNetwork, tpu_hierarchy
 from repro_torch.models import model as model_api
@@ -104,14 +109,17 @@ class EngineConfig:
     min_bucket: int = 8           # smallest bucket (tiny batches coalesce)
     refresh_on_promotion: bool = False  # duel churn → background re-solve
     refresh_min_gain: float = 0.0  # > 0 not ported: queue 1 item 13
-    warm_start: bool = False      # not ported: queue 1 item 12
+    warm_start: bool = False      # §4 continuous-limit warm start on
+    #                               every refresh whose topology reduces
+    warm_polish_iters: int = 512  # LOCALSWAP polish window after it
+    #                               (0 = the analytic placement alone)
     strategy: str | None = None   # not ported: queue 1 item 13
 
 
 _LATER_SLICES = (
     ("prune", "item 10"), ("verify", "item 10"), ("quantize", "item 10"),
-    ("sharded", "item 11"), ("warm_start", "item 12"),
-    ("strategy", "item 13"), ("refresh_min_gain", "item 13"))
+    ("sharded", "item 11"), ("strategy", "item 13"),
+    ("refresh_min_gain", "item 13"))
 
 
 def _check_ported(ecfg: EngineConfig) -> None:
@@ -304,12 +312,32 @@ class SimCacheEngine:
         (clamped) allocation and the predicted C(A). ``device`` picks the
         device control plane (a streaming ``DeviceInstance``) over the
         NumPy oracles. Records its phases' seconds in
-        ``solve_timings``."""
+        ``solve_timings``.
+
+        With ``EngineConfig.warm_start`` on and a topology that reduces
+        to a §4 continuous program, the continuous-limit pipeline
+        replaces ``algo`` (deterministic, so background refreshes stay
+        replayable); its stages go into ``solve_timings`` as
+        ``warm_solve_s``, ``warm_map_s``, ``warm_polish_s`` and
+        ``warm_swaps``. Irreducible topologies fall back to ``algo``."""
         timings: dict = {}
         t0 = time.perf_counter()
+        warm_red = warmstart.classify_topology(
+            inst.net, gamma=inst.cat.gamma) if self.ecfg.warm_start else None
         if device:
             dinst = DeviceInstance.from_instance(
                 inst, materialize_ca=False, device=self.device)
+        if warm_red is not None:
+            rep = warmstart.warm_start(
+                inst, reduction=warm_red, device=device,
+                dinst=dinst if device else None, torch_device=self.device,
+                polish_iters=self.ecfg.warm_polish_iters,
+                tol=self.ecfg.swap_tol)
+            slots = rep.slots
+            timings.update(warm_solve_s=rep.solve_s, warm_map_s=rep.map_s,
+                           warm_polish_s=rep.polish_s,
+                           warm_swaps=rep.n_swaps)
+        elif device:
             if algo == "greedy":
                 slots = device_greedy(dinst)
             elif algo == "localswap":

@@ -102,6 +102,59 @@ def test_engine_matches_reference_cold_refresh_warm():
     assert oc == joc and ow == jow
 
 
+@pytest.mark.parametrize("device", [True, False], ids=["device", "host"])
+def test_engine_warm_start_matches_reference(device):
+    """``EngineConfig(warm_start=True)``: the hierarchy reduces to a §4
+    chain, so every refresh is the continuous-limit warm start (NumPy
+    solve and map, then the polish on the device control plane or the
+    host). Cold, refresh, warm, then one background refresh on the
+    window: the same slots, hits, responses and costs as the reference's
+    engine, within this file's tolerance; the background refresh installs
+    what a synchronous refresh of the same window gives."""
+    jcfg = dataclasses.replace(jget_smoke("granite-3-2b"), **SMALL)
+    jparams = jmodel.init_params(jcfg, 0)
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), **SMALL)
+    model = convert.from_jax_params(cfg, jax.tree.map(np.asarray, jparams),
+                                    device="cpu")
+    coords = jcat.embedding_catalog(n=400, dim=16, seed=1).coords
+    kw = dict(ECFG, warm_start=True, device_placement=device)
+    jeng = JEngine(jcfg, jparams, JConfig(**kw), coords)
+    eng = SimCacheEngine(cfg, model, EngineConfig(**kw), coords,
+                         device="cpu")
+    cold, warm = trace(4), trace(8, seed=1)
+    results = []
+    for e, conv in ((jeng, jnp.asarray), (eng, np.asarray)):
+        s_cold, o_cold = run(e, cold, conv)
+        pred = e.refresh_placement()
+        slots = e.placement.slots.copy()
+        s_warm, o_warm = run(e, warm, conv)
+        assert e.request_refresh() and e.wait_refresh(timeout=300)
+        assert e.poll_refresh()
+        results.append((s_cold, o_cold, pred, slots, s_warm, o_warm,
+                        e.placement.slots.copy(), e.last_predicted_cost))
+    (jc, joc, jpred, jslots, jw, jow, jbg, jbg_pred), \
+        (c, oc, pred, slots, w, ow, bg, bg_pred) = results
+    np.testing.assert_array_equal(slots, jslots)
+    np.testing.assert_array_equal(bg, jbg)
+    # C(A) is Σ λ·cost with Σ λ = 1: the per-hit 0.1 bounds it whole (the
+    # host evaluator prices hits with the matmul form's noise)
+    assert abs(pred - jpred) <= 0.1 + 1e-5 * jpred
+    assert abs(bg_pred - jbg_pred) <= 0.1 + 1e-5 * jbg_pred
+    for a, b in ((c, jc), (w, jw)):
+        assert (a.n_requests, a.n_hits, a.model_calls) == \
+            (b.n_requests, b.n_hits, b.model_calls)
+        assert abs(a.total_cost - b.total_cost) <= \
+            0.1 * a.n_hits + 1e-5 * b.total_cost
+    assert w.hit_rate > 0.5 and c.hit_rate == 0.0
+    assert oc == joc and ow == jow
+    t = eng.solve_timings
+    assert set(t) == {"warm_solve_s", "warm_map_s", "warm_polish_s",
+                      "warm_swaps", "solve_s"}
+    assert t["warm_swaps"] >= 0 and min(t.values()) >= 0.0
+    assert eng.refresh_placement() == pytest.approx(bg_pred, rel=0, abs=0)
+    np.testing.assert_array_equal(eng.placement.slots, bg)
+
+
 def test_observed_placement_tail_matches():
     """Never-requested objects keep an exact-zero rate, so once the real
     gains are exhausted the f64 host GREEDY and the f32 device GREEDY
@@ -211,8 +264,7 @@ def test_observed_instance_cold_uniform_and_unfloored():
 
 @pytest.mark.parametrize("flag", [
     dict(prune="lsh"), dict(verify=True), dict(quantize=True), dict(sharded=True),
-    dict(warm_start=True), dict(strategy="lce"),
-    dict(refresh_min_gain=1.0)])
+    dict(strategy="lce"), dict(refresh_min_gain=1.0)])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         make_engine(**flag)

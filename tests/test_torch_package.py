@@ -22,7 +22,10 @@ MODULES = [
     "repro_torch.kernels.flash_attention.flash",
     "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.gain",
     "repro_torch.kernels.gain.ref", "repro_torch.kernels.gain.gain",
-    "repro_torch.kernels.gain.ops"]
+    "repro_torch.kernels.gain.ops", "repro_torch.core.placement.netduel",
+    "repro_torch.kernels.duel", "repro_torch.kernels.duel.duel",
+    "repro_torch.core.placement.continuous",
+    "repro_torch.core.placement.warmstart"]
 
 _PROBE = """
 import sys
