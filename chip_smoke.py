@@ -98,15 +98,38 @@ Phases, one line each before the last:
    its launches counted over the run (F's among them); every batch each
    duel plane observed is replayed through a second ``DuelPlane`` on the
    plain scan, whose carry must equal the engine's bitwise.
+   Then ``scenario``: a multi-ingress ISP-like network (37 caches, 448
+   slots, 4 ingresses) on the stream's catalog rescaled by the reference
+   hit-rate bench's rule; GREEDY on the card (kernel C in 5 groups a
+   call, counted; C then held against its plain version at the seed's
+   inputs) and 4,096 requests through the engine's strategy plane for
+   each of the five strategies (kernel E on the misses, counted): hit
+   rate, mean cost and batch percentiles beside GREEDY's C(A).
+   Then ``hitrate``: the Che plane on the card on the reference's
+   full-scale network (scale-free, 41 caches, 4,096 slots, 6
+   ingresses) at 20,000 objects (cut from 10⁶: no LSH enumeration yet):
+   exact balls, the SIM-LRU and RND-LRU predictions against a 40,000-
+   request replay, the balls held against the CPU's on a slice, and the
+   refresh surrogate's time a call at 10⁵ and 10⁶ objects, its cost
+   bitwise from call to call.
+   Then ``gate``: the ``stream`` configuration with
+   ``refresh_min_gain`` 100: every stationary request skipped (no solve,
+   no swap), a drift to uniform demand (``set_streams``) triggering a
+   solve that swaps in; the surrogate's time a call; launches counted
+   over the phase.
 9. ``launch`` — ``python -m repro_torch.launch.serve`` in a subprocess,
-   batch loop, streaming, streaming with ``--netduel``, and the batch
-   loop with ``--warm-start``; each must exit 0 and print its final
-   ``[serve] … hit-rate`` line (and the duel churn with ``--netduel``).
+   batch loop, streaming, streaming with ``--netduel``, the batch loop
+   with ``--warm-start``, and ``--scenario scale_free --strategy lce``
+   in both loops; each must exit 0 and print its final ``[serve] …
+   hit-rate`` line (and the duel churn with ``--netduel``, the scenario
+   with ``--scenario``).
 10. ``kernels`` — one JSON object with every kernel's numbers; A's and
    B's entries also carry each of their two shapes (K 448 and 65,536),
    C's its two (R = O = 10⁵ and 20,000) and its times past 8 caches; F's
    launches are those of the ``duel_engine`` run; A's entry also carries
-   its launches in the ``warmstart`` run.
+   its launches in the ``warmstart`` run, C's and E's their launches in
+   the ``scenario`` runs, and every entry its launches in the ``gate``
+   run.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script then exits non-zero and prints no result. It
@@ -1052,10 +1075,12 @@ def phase_warm_1e6(torch):
         raise RuntimeError(f"warm_1e6 phase failed its checks: {checks}")
 
 
-# (B, S): the long prefills (the last ragged), then the stream phase's
-# miss-prefill buckets of 128-token prompts
+# (B, S): the long prefills (the last ragged), then the miss-prefill
+# buckets of 128-token prompts: up to 64 in the stream phase, 128 and 256
+# in the scenario and gate phases (batches of 256, padded to a power of 2)
 FLASH_SHAPES = ((1, 4096), (4, 2048), (2, 1000),
-                (8, 128), (16, 128), (32, 128), (64, 128))
+                (8, 128), (16, 128), (32, 128), (64, 128),
+                (128, 128), (256, 128))
 
 
 def phase_kernel_e(torch, clock_hz: float):
@@ -1692,12 +1717,418 @@ def phase_stream(torch, params):
     return counts
 
 
+SCENARIO_CATALOG = dict(n=20_000, dim=100, seed=1)   # the stream's
+SCENARIO_BUDGET = 448                                # the engine's K
+SCENARIO_REQUESTS, SCENARIO_BATCH, SCENARIO_SEQ = 4096, 256, 128
+
+
+def rescaled_catalog(net, n: int, dim: int, seed: int):
+    """``embedding_catalog(n, dim, seed)`` scaled by the reference
+    hit-rate bench's rule (``rescaled_coords``), so that C_a is on the
+    network's cost scale; returns the scaled f32 coordinates, θ and the
+    unscaled catalog."""
+    from repro_torch.core import catalog as catalog_api
+    from repro_torch.core.analysis import rescaled_coords
+    cat = catalog_api.embedding_catalog(n=n, dim=dim, seed=seed)
+    coords, theta = rescaled_coords(net, cat.coords, seed)
+    return coords, theta, cat
+
+
+def phase_scenario(torch, params):
+    """A multi-ingress ISP-like network (37 caches, 448 slots by degree
+    centrality, 4 ingresses) on the stream's catalog rescaled by the
+    reference bench's rule: GREEDY on the device (kernel C in ⌈37/8⌉ = 5
+    groups a call; C then held against its plain version at the seed's
+    inputs, outside the counted run), then 4,096 requests in batches of
+    256 through the engine's strategy plane for each of the five
+    strategies, misses prefilled through kernel E. Counts are zeroed
+    before each run and read after it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import demand as demand_api
+    from repro_torch.core import scenarios
+    from repro_torch.core.catalog import Catalog
+    from repro_torch.core.objective import DeviceInstance, Instance
+    from repro_torch.core.placement import device_greedy
+    from repro_torch.core.routing import STRATEGIES
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.knn.gains import (H_SENTINEL, _gains_tiles,
+                                               _j_groups)
+    from repro_torch.serve import EngineConfig, SimCacheEngine
+
+    sc = scenarios.scenario("isp", cache_budget=SCENARIO_BUDGET,
+                            placement="degree", n_ingress=4, seed=0)
+    net = sc.net
+    coords, theta, cat0 = rescaled_catalog(net, **SCENARIO_CATALOG)
+    cat = Catalog(coords=coords, metric="l2", gamma=1.0)
+    dem = demand_api.zipf(cat0, alpha=1.0, n_ingress=net.n_ingress, seed=1)
+    inst = Instance(net=net, cat=cat, dem=dem)
+    dinst = DeviceInstance.from_instance(inst, materialize_ca=False)
+    reset_launch_counts()                        # GREEDY's run
+    t = time.perf_counter()
+    slots = device_greedy(dinst)
+    greedy_s = time.perf_counter() - t
+    greedy_counts = launch_counts()
+    picks = int((slots >= 0).sum())
+    cost = float(dinst.total_cost(np.where(slots < 0, 0, slots)))
+    empty = float(dinst.total_cost(np.zeros_like(slots)))
+
+    # kernel C at the seed's inputs against its plain version (kernel C's
+    # tolerance of the gain_groups phase, summed over the ingresses)
+    x = dinst.coords
+    lam = dinst.lam
+    cur = dinst.initial_costs()
+    Hs = torch.where(torch.isfinite(dinst.H), dinst.H, H_SENTINEL)
+    got = dinst.gains(cur).T
+    ref = _gains_tiles(x, x, lam, cur, Hs, "l2", 1.0).T
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    tol = gain_tolerance(torch, x, lam).sum(0, keepdim=True) \
+        + 1e-4 * ref.abs()
+    hold = dict(R=x.shape[0], O=x.shape[0], D=x.shape[1], I=lam.shape[0],
+                J=net.n_caches, groups=len(_j_groups(net.n_caches)),
+                max_abs_err=float(err.max()), tol_max=float(tol.max()),
+                ok=bool((err <= tol).all()) and bool(torch.isfinite(got)
+                                                     .all()))
+    del got, ref, err, tol
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              use_flash_attention=True)
+    rows, counts = {}, {}
+    for s in STRATEGIES:
+        eng = SimCacheEngine(cfg, params, EngineConfig(strategy=s),
+                             coords, net=net)
+        rng = np.random.default_rng(2)
+        reset_launch_counts()                    # this strategy's run
+        t = time.perf_counter()
+        for _ in range(SCENARIO_REQUESTS // SCENARIO_BATCH):
+            ids, ings = dem.sample(SCENARIO_BATCH, rng)
+            prompts = torch.as_tensor(rng.integers(
+                0, cfg.vocab, (SCENARIO_BATCH, SCENARIO_SEQ)),
+                device="cuda")
+            out, _ = eng.serve(ids, prompts, ingress_ids=ings)
+            if len(out) != SCENARIO_BATCH:
+                raise RuntimeError("serve() lost requests")
+        seconds = time.perf_counter() - t
+        counts[s] = launch_counts()
+        st = eng.stats
+        rows[s] = dict(hit_rate=st.hit_rate, mean_cost=st.mean_cost,
+                       approx_cost=st.total_approx_cost / st.n_requests,
+                       model_calls=st.model_calls, p50_ms=st.p50_ms,
+                       p95_ms=st.p95_ms, seconds=seconds,
+                       occupancy=int(eng.routing.occupancy().sum()),
+                       launches=counts[s])
+        del eng
+    res = dict(net=net.name, nodes=sc.graph.n_nodes, caches=net.n_caches,
+               slots=net.total_slots, ingress=net.n_ingress,
+               path_lengths=[len(p) for p in sc.paths], catalog=cat.n,
+               dim=cat.dim, theta=theta, demand="zipf1.0",
+               greedy=dict(seconds=greedy_s, picks=picks, cost=cost,
+                           empty_cost=empty, launches=greedy_counts),
+               kernel_c_hold=hold, strategies=rows)
+    log("scenario", **res)
+    checks = [greedy_counts["placement_gains"] > 0, picks > 0,
+              cost < empty, hold["ok"],
+              all(c["flash_attention"] > 0 for c in counts.values()),
+              all(0.0 < r["hit_rate"] < 1.0 for r in rows.values()),
+              all(r["mean_cost"] <= float(net.h_repo.max())
+                  for r in rows.values())]
+    if not all(checks):
+        raise RuntimeError(f"scenario phase failed its checks: {checks}")
+    return dict(greedy=greedy_counts["placement_gains"],
+                flash_attention=sum(c["flash_attention"]
+                                    for c in counts.values()))
+
+
+HITRATE_REQUESTS = 40_000
+SURROGATE_OBJECTS = (100_000, 1_000_000)
+SURROGATE_CALLS = 5
+
+
+def surrogate_breakdown(torch, net, lam) -> dict:
+    """Where one ``surrogate_cost`` call spends its time: a call under
+    torch.profiler (the device's kernel and copy time, launches, and the
+    idle share of the call's wall time), then a call with the solve and
+    the pass each timed to the end of their device work (the rest is
+    the host's f64 composition)."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.analysis import hitrate, surrogate_cost
+    surrogate_cost(net, lam)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        surrogate_cost(net, lam)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in dev if e.name.startswith("Memcpy")]
+    kern = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    span = lambda es: sum(e.time_range.end - e.time_range.start  # noqa
+                          for e in es) / 1e3
+    spent = collections.Counter()
+    saved = hitrate.solve_characteristic_time, hitrate._cache_pass
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+    hitrate.solve_characteristic_time = timed("solve_ms", saved[0])
+    hitrate._cache_pass = timed("pass_ms", saved[1])
+    try:
+        t = time.perf_counter()
+        surrogate_cost(net, lam)
+        total = (time.perf_counter() - t) * 1e3
+    finally:
+        hitrate.solve_characteristic_time, hitrate._cache_pass = saved
+    return dict(profiled_wall_ms=wall, kernel_ms=span(kern),
+                copy_ms=span(copies), launches=len(kern),
+                idle_share=1.0 - (span(kern) + span(copies)) / wall,
+                split_wall_ms=total, **spent,
+                host_ms=total - sum(spent.values()))
+
+
+def phase_hitrate(torch):
+    """The Che plane on the card: the reference's full-scale network
+    (scale-free, 41 caches, 4,096 slots, 6 ingresses) on the stream's
+    catalog rescaled as the reference bench rescales it (cut from 10⁶
+    objects: the LSH enumeration is not ported), exact balls for SIM-LRU
+    and RND-LRU, the fixed point of each against a ``StrategyPlane``
+    replay of 40,000 Zipf(0.9) requests measured as the bench measures
+    it (the warm half); then the engine surrogate's time a call on the
+    engine's three-level hierarchy at 10⁵ and 10⁶ objects with exact-hit
+    balls. The balls are also held against the CPU's on a 2,000-object
+    slice of the catalog."""
+    from repro_torch.core import demand as demand_api
+    from repro_torch.core import scenarios, topology
+    from repro_torch.core.analysis import (predict_hitrates,
+                                           similarity_balls,
+                                           surrogate_cost)
+    from repro_torch.core.catalog import Catalog
+    from repro_torch.core.routing import StrategyPlane
+
+    sc = scenarios.scenario("scale_free", cache_budget=4096,
+                            placement="degree", n_ingress=6, seed=0)
+    net = sc.net
+    coords, theta, cat0 = rescaled_catalog(net, **SCENARIO_CATALOG)
+    dem = demand_api.zipf(cat0, alpha=0.9, n_ingress=net.n_ingress, seed=7)
+    objs, ings = dem.sample(HITRATE_REQUESTS, np.random.default_rng(7))
+    half = HITRATE_REQUESTS // 2
+    rows = {}
+    for strat, q_mode in (("sim-lru", "hard"), ("rnd-lru", "rnd")):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        balls = similarity_balls(coords, theta, q_mode=q_mode)
+        balls_s = time.perf_counter() - t
+        t = time.perf_counter()
+        pred = predict_hitrates(net, dem.lam, balls)
+        solve_s = time.perf_counter() - t
+        pl = StrategyPlane(net, coords, strategy=strat, threshold=theta,
+                           seed=7)
+        t = time.perf_counter()
+        dec = pl.serve(objs, ings)
+        replay_s = time.perf_counter() - t
+        rows[strat] = dict(
+            balls_s=balls_s, mean_ball=balls.mean_size,
+            max_ball=int(balls.sizes.max()), solve_s=solve_s,
+            predicted_hit_rate=pred.hit_rate,
+            predicted_mean_cost=pred.mean_cost, residual=pred.residual,
+            replay_s=replay_s,
+            replayed_warm_hit_rate=float(dec.hit[half:].mean()),
+            replayed_warm_mean_cost=float(dec.cost[half:].mean()),
+            finite=bool(np.isfinite(pred.occupancy).all()
+                        and np.isfinite(pred.mean_cost)))
+        rows[strat]["abs_gap"] = abs(rows[strat]["predicted_hit_rate"]
+                                     - rows[strat]["replayed_warm_hit_rate"])
+        del balls, pred
+    # the exact enumeration on the card against the CPU's, on a slice
+    part = coords[:2000]
+    b_dev = similarity_balls(part, theta)
+    b_cpu = similarity_balls(part, theta, device="cpu")
+    balls_hold = dict(
+        objects=2000, idx_equal=bool(np.array_equal(b_dev.idx, b_cpu.idx)),
+        q_equal=bool(np.array_equal(b_dev.q, b_cpu.q)),
+        dist_max_rel=float(np.max(np.abs(b_dev.dist - b_cpu.dist)
+                                  / np.maximum(b_cpu.dist, 1e-30))))
+
+    hier = topology.tpu_hierarchy(64, 128, 256, 15.0, 150.0, 1000.0)
+    surrogate = {}
+    for n in SURROGATE_OBJECTS:
+        lam = demand_api.zipf(Catalog(coords=np.zeros((n, 1), np.float32)),
+                              alpha=0.8, seed=0).lam
+        ms, vals = [], set()
+        for _ in range(SURROGATE_CALLS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            vals.add(surrogate_cost(hier, lam))
+            ms.append((time.perf_counter() - t) * 1e3)
+        surrogate[str(n)] = dict(median_ms=float(np.median(ms)), ms=ms,
+                                 cost=vals.pop(), repeats_bitwise=not vals,
+                                 **surrogate_breakdown(torch, hier, lam))
+    res = dict(net=net.name, caches=net.n_caches, slots=net.total_slots,
+               ingress=net.n_ingress, catalog=len(coords),
+               dim=coords.shape[1], cut_from=1_000_000, theta=theta,
+               demand="zipf0.9", requests=HITRATE_REQUESTS,
+               strategies=rows, balls_hold=balls_hold, surrogate=surrogate)
+    log("hitrate", **res)
+    checks = [all(r["finite"] and 0.0 < r["predicted_hit_rate"] < 1.0
+                  for r in rows.values()),
+              all(r["mean_ball"] > 1.0 for r in rows.values()),
+              balls_hold["idx_equal"], balls_hold["q_equal"],
+              balls_hold["dist_max_rel"] <= 2.0 ** -23,
+              all(s["repeats_bitwise"] for s in surrogate.values())]
+    if not all(checks):
+        raise RuntimeError(f"hitrate phase failed its checks: {checks}")
+
+
+GATE_MIN_GAIN = 100.0        # 10 % of h_model 1000
+GATE_PROBE, GATE_COLD = 2048, 6144
+GATE_WINDOW = 4096
+
+
+def phase_gate(torch, params):
+    """The ``stream`` configuration with the refresh gate at 100 (10 % of
+    h_model, the reference test's ratio): cold requests, then
+    ``refresh_placement()`` (the gate's baseline), then a stationary
+    window with a cadence of 32 batches, where every request must be
+    skipped (no solve started, no swap), then a drift to uniform demand
+    (``set_streams``), where a request must trigger and its solve swap
+    in by the drain. The surrogate is also read at 2,048 cold requests:
+    its rise from there to the baseline at 6,144 is why the baseline
+    waits that long (the observed window's support still grows), and
+    the stationary cadence calls that a baseline taken there would have
+    let through are counted. Every surrogate call is timed and logged
+    with its stage and, for a cadence call, |surrogate − baseline| and
+    its margin to the gate (gate − |Δ|: positive skips); launches are
+    counted over the phase."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import catalog as catalog_api
+    from repro_torch.core import demand as demand_api
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (EngineConfig, SimCacheEngine,
+                                   StreamDriver, StreamSpec)
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              use_flash_attention=True)
+    cat = catalog_api.embedding_catalog(**SCENARIO_CATALOG)
+    ecfg = EngineConfig(h_ici=15.0, h_dcn=150.0, h_model=1000.0,
+                        refresh_min_gain=GATE_MIN_GAIN)
+    eng = SimCacheEngine(cfg, params, ecfg, cat.coords)
+    calls = []
+    stage = ["probe"]
+    surrogate = eng._surrogate
+
+    def timed_surrogate(inst):
+        base = eng._surrogate_baseline
+        t = time.perf_counter()
+        v = surrogate(inst)
+        call = dict(stage=stage[0], ms=(time.perf_counter() - t) * 1e3,
+                    cost=v, requests=int(eng.counts.sum()))
+        if stage[0] in ("stationary", "drift"):
+            call.update(baseline=base, abs_delta=abs(v - base),
+                        margin=GATE_MIN_GAIN - abs(v - base))
+        calls.append(call)
+        return v
+    eng._surrogate = timed_surrogate
+    streams = [StreamSpec(demand=demand_api.zipf(cat, alpha=1.0, seed=s + 1),
+                          rate=1.0 + s, seed=s + 1, name=f"stream{s}")
+               for s in range(4)]
+    drv = StreamDriver(eng, streams, max_batch=256, batch_window=2.0,
+                       prompt_len=128, refresh_every=0)
+    times = {}
+    reset_launch_counts()                        # the phase's run
+    t0 = time.perf_counter()
+    drv.run(GATE_PROBE)
+    probe = eng._surrogate(eng.observed_instance())
+    drv.run(GATE_COLD - GATE_PROBE)
+    times["cold_s"] = time.perf_counter() - t0
+    stage[0] = "baseline"
+    t = time.perf_counter()
+    eng.refresh_placement()
+    times["refresh_s"] = time.perf_counter() - t
+    base = eng._surrogate_baseline
+    drv.refresh_every = 32
+    stage[0] = "stationary"
+    t = time.perf_counter()
+    stat = drv.run(GATE_WINDOW)
+    times["stationary_s"] = time.perf_counter() - t
+    in_flight_after_stationary = eng.refresh_in_flight
+    swaps_stationary = eng.swap_count
+    drv.set_streams([StreamSpec(demand=demand_api.uniform(cat), rate=5.0,
+                                seed=99, name="uniform")])
+    stage[0] = "drift"
+    t = time.perf_counter()
+    drift = drv.run(GATE_WINDOW)
+    times["drift_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    drained = drv.drain_refresh()
+    times["drain_s"] = time.perf_counter() - t
+    counts = launch_counts()                      # read just after
+    times["phase_s"] = time.perf_counter() - t0
+
+    def window(st):
+        return dict(requests=st.n_requests, batches=st.n_batches,
+                    refresh_skipped=st.refresh_skipped,
+                    refresh_triggered=st.refresh_triggered,
+                    refreshes_started=st.refreshes_started, swaps=st.swaps,
+                    req_per_s=st.requests_per_s, p50_ms=st.p50_ms,
+                    p95_ms=st.p95_ms)
+    gate_ms = [c["ms"] for c in calls]
+    st_calls = [c for c in calls if c["stage"] == "stationary"]
+    dr_calls = [c for c in calls if c["stage"] == "drift"]
+    margins = dict(
+        # the least room any stationary call left below the gate
+        stationary_min_margin=min((c["margin"] for c in st_calls),
+                                  default=None),
+        # the drift calls that skipped, and by how little the last did
+        drift_skipped_margins=[c["margin"] for c in dr_calls
+                               if c["margin"] > 0],
+        # by how much the first triggering drift call crossed the gate
+        drift_trigger_excess=next((-c["margin"] for c in dr_calls
+                                   if c["margin"] <= 0), None),
+        # stationary calls that a baseline at GATE_PROBE requests would
+        # have triggered (|cost − probe| ≥ gate); the first starts a solve
+        stationary_triggers_at_probe_baseline=sum(
+            int(abs(c["cost"] - probe) >= GATE_MIN_GAIN) for c in st_calls))
+    res = dict(model=cfg.name, catalog=cat.n, dim=cat.dim,
+               refresh_min_gain=GATE_MIN_GAIN, cold_requests=GATE_COLD,
+               surrogate_at_probe=dict(requests=GATE_PROBE, cost=probe,
+                                       rise_to_baseline=base - probe),
+               baseline=base, margins=margins, stationary=window(stat),
+               drift=window(drift), drained=drained,
+               swaps=eng.swap_count, hit_rate=eng.stats.hit_rate,
+               mean_cost=eng.stats.mean_cost,
+               surrogate_calls=calls,
+               surrogate_median_ms=float(np.median(gate_ms)),
+               launches=counts, **times)
+    log("gate", **res)
+    checks = [stat.refresh_skipped > 0, stat.refreshes_started == 0,
+              stat.refresh_triggered == 0, stat.swaps == 0,
+              swaps_stationary == 0, not in_flight_after_stationary,
+              drift.refresh_triggered > 0,
+              drift.refreshes_started == drift.refresh_triggered,
+              eng.swap_count > 0, not eng.refresh_in_flight,
+              counts["fused_lookup"] > 0, counts["flash_attention"] > 0,
+              counts["placement_gains"] > 0]
+    if not all(checks):
+        raise RuntimeError(f"gate phase failed its checks: {checks}")
+    return counts
+
+
 def phase_launch():
     """The command-line entry point, as a user runs it, in a subprocess
     of its own (its kernel launches are its own, counted nowhere): the
     batch loop, streaming, streaming with ``--netduel``, whose printout
-    must carry the duel churn, and the batch loop with
-    ``--warm-start``."""
+    must carry the duel churn, the batch loop with ``--warm-start``, and
+    ``--scenario scale_free --strategy lce`` in both loops, whose
+    printout must name the scenario."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     runs = []
@@ -1705,7 +2136,11 @@ def phase_launch():
                   ["--streaming", "--streams", "4", "--requests", "1024"],
                   ["--streaming", "--streams", "4", "--requests", "1024",
                    "--netduel"],
-                  ["--requests", "256", "--warm-start"]):
+                  ["--requests", "256", "--warm-start"],
+                  ["--scenario", "scale_free", "--strategy", "lce",
+                   "--requests", "256"],
+                  ["--scenario", "scale_free", "--strategy", "lce",
+                   "--streaming", "--requests", "1024"]):
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
                "granite-3-2b", *extra]
         t = time.perf_counter()
@@ -1720,7 +2155,9 @@ def phase_launch():
             print(final, flush=True)
         churn = "--netduel" not in extra or any(
             "duel churn" in ln for ln in lines)
-        if p.returncode != 0 or final is None or not churn:
+        named = "--scenario" not in extra or any(
+            "[serve] scenario scale_free" in ln for ln in lines)
+        if p.returncode != 0 or final is None or not churn or not named:
             log("launch", runs=runs, stderr_tail=p.stderr[-3000:])
             raise RuntimeError(f"the launcher failed: {' '.join(extra)}")
     log("launch", runs=runs)
@@ -1780,6 +2217,9 @@ def main() -> int:
     params = phase_prefill(torch)
     stream_counts = phase_stream(torch, params)
     duel_counts = phase_duel_engine(torch, params)
+    scenario_counts = phase_scenario(torch, params)
+    phase_hitrate(torch)
+    gate_counts = phase_gate(torch, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1815,6 +2255,13 @@ def main() -> int:
             kernels[-1]["device_ms"] = r["device_ms"]
         if r["name"] == "fused_lookup":          # the warm start's path
             kernels[-1]["launches_warmstart"] = warm_counts["fused_lookup"]
+        if r["name"] == "placement_gains":       # GREEDY on the scenario
+            kernels[-1]["launches_scenario"] = scenario_counts["greedy"]
+        if r["name"] == "flash_attention":       # the strategy engines
+            kernels[-1]["launches_scenario"] = \
+                scenario_counts["flash_attention"]
+        if r["name"] in gate_counts:             # the gated stream engine
+            kernels[-1]["launches_gate"] = gate_counts[r["name"]]
         if r["name"] in shapes:        # A, B: K 448, 65,536; C: O 10⁵, 2e4
             dims = ("R", "O", "D") if "R" in r else ("Q", "K", "D")
             kernels[-1]["shapes"] = [

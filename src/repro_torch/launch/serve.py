@@ -19,12 +19,19 @@ batches.
 the card) and lets their churn start refreshes. ``--warm-start`` solves
 every refresh by the §4 continuous-limit warm start (an analytic solve,
 the Prop 4.2 band map and a LOCALSWAP polish of
-``--warm-polish-iters`` requests) in place of the discrete solver. The
-launcher runs on the card and exits non-zero without one. A flag of a
-later slice is parsed as in the reference and raises
-``NotImplementedError`` naming its ROADMAP item when given:
-``--scenario`` (queue 1 item 13); ``--strategy``, ``--cache-budget``
-and ``--ingress`` matter only with it.
+``--warm-polish-iters`` requests) in place of the discrete solver.
+
+``--scenario`` swaps the built-in 3-level hierarchy for a generated
+general-graph network (core/scenarios.py: isp / scale_free /
+watts_strogatz, ``--cache-budget`` slots split by degree centrality,
+``--ingress`` ingress nodes) and serves its multi-ingress traffic
+through the on-path strategy plane that ``--strategy`` picks
+(core/routing.py); it runs no placement refresh and no ``calibrate()``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --streaming --scenario scale_free --strategy lce --requests 512
+
+The launcher runs on the card and exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -37,17 +44,11 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.registry import get_smoke_config, list_archs
 from repro_torch.core import catalog as catalog_api
 from repro_torch.core import demand as demand_api
+from repro_torch.core import scenarios as scenarios_api
+from repro_torch.core.routing import STRATEGIES
 from repro_torch.models import model as model_api
 from repro_torch.serve import (EngineConfig, SimCacheEngine, StreamDriver,
                                StreamSpec)
-
-# the reference's choices (repro.core.scenarios.GENERATORS and
-# repro.core.routing.STRATEGIES), copied: their modules are item 13
-SCENARIOS = ("isp", "scale_free", "watts_strogatz")
-STRATEGIES = ("lce", "lcd", "probcache", "sim-lru", "rnd-lru")
-
-# flag → the ROADMAP queue 1 item that ports what it switches on
-DEFERRED = (("scenario", "item 13"),)
 
 
 def run_batch_loop(eng, cfg, dem, args) -> None:
@@ -59,7 +60,7 @@ def run_batch_loop(eng, cfg, dem, args) -> None:
             0, cfg.vocab, (args.batch, 16)).astype(np.int32),
             device=eng.device)
         eng.serve(ids, prompts, ingress_ids=ings)
-        if i == n_batches // 2:
+        if i == n_batches // 2 and eng.routing is None:
             pred = eng.refresh_placement()
             print(f"[serve] placement refreshed; predicted C(A)={pred:.2f}")
 
@@ -73,10 +74,12 @@ def run_streaming(eng, cat, args) -> None:
         for s in range(args.streams)]
     drv = StreamDriver(eng, streams, max_batch=args.batch * 4,
                        batch_window=2.0, prompt_len=16,
-                       refresh_every=args.refresh_every)
+                       refresh_every=(0 if eng.routing is not None
+                                      else args.refresh_every))
     drv.run(max(args.requests // 8, args.batch))   # observe demand cold
-    pred = eng.refresh_placement()
-    print(f"[serve] initial placement; predicted C(A)={pred:.2f}")
+    if eng.routing is None:
+        pred = eng.refresh_placement()
+        print(f"[serve] initial placement; predicted C(A)={pred:.2f}")
     st = drv.run(args.requests)
     drv.drain_refresh()
     print(f"[serve] streaming: {st.n_requests} requests in "
@@ -108,9 +111,11 @@ def parser() -> argparse.ArgumentParser:
                          "bounded polish instead of the O(O·J) solver)")
     ap.add_argument("--warm-polish-iters", type=int, default=512,
                     help="LOCALSWAP polish window after the warm start")
-    ap.add_argument("--scenario", default=None, choices=SCENARIOS,
+    ap.add_argument("--scenario", default=None,
+                    choices=sorted(scenarios_api.GENERATORS),
                     help="serve a generated general-graph network "
-                         "(not ported: queue 1 item 13)")
+                         "through the on-path strategy plane instead "
+                         "of the built-in 3-level hierarchy")
     ap.add_argument("--strategy", default="lce", choices=STRATEGIES,
                     help="on-path routing strategy (with --scenario)")
     ap.add_argument("--cache-budget", type=int, default=64,
@@ -123,19 +128,43 @@ def parser() -> argparse.ArgumentParser:
 
 def engine_config(args) -> EngineConfig:
     """The engine configuration the launcher's flags select."""
+    if args.scenario:
+        return EngineConfig(algo=args.algo, strategy=args.strategy)
     return EngineConfig(algo=args.algo, netduel=args.netduel,
                         refresh_on_promotion=args.netduel,
                         warm_start=args.warm_start,
                         warm_polish_iters=args.warm_polish_iters)
 
 
+def build_engine(args, cfg, params, cat, device):
+    """The engine and demand the flags select. With ``--scenario`` the
+    engine serves the generated network through the strategy plane (the
+    fused simcache is single-ingress) and is not calibrated; without,
+    it serves the built-in hierarchy, calibrated."""
+    if args.scenario:
+        sc = scenarios_api.scenario(args.scenario,
+                                    cache_budget=args.cache_budget,
+                                    placement="degree",
+                                    n_ingress=args.ingress, seed=0)
+        dem = demand_api.zipf(cat, alpha=1.0,
+                              n_ingress=sc.net.n_ingress, seed=1)
+        eng = SimCacheEngine(cfg, params, engine_config(args), cat.coords,
+                             net=sc.net, device=device)
+        print(f"[serve] scenario {args.scenario}: "
+              f"{sc.graph.n_nodes} nodes, {sc.net.n_caches} caches "
+              f"({sc.net.total_slots} slots), "
+              f"{sc.net.n_ingress} ingress, strategy {args.strategy}")
+        return eng, dem
+    dem = demand_api.zipf(cat, alpha=1.0, seed=1)
+    eng = SimCacheEngine(cfg, params, engine_config(args), cat.coords,
+                         device=device)
+    eng.calibrate(torch.zeros((args.batch, 16), dtype=torch.int32,
+                              device=device))
+    return eng, dem
+
+
 def main(argv: list[str] | None = None) -> None:
     args = parser().parse_args(argv)
-    for flag, item in DEFERRED:
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: ROADMAP "
-                f"queue 1 {item}")
     try:
         device = resolve_device()
     except RuntimeError as e:
@@ -144,11 +173,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_smoke_config(args.arch)
     params = model_api.init_params(cfg, 0, device=device)
     cat = catalog_api.embedding_catalog(n=1000, dim=32, seed=0)
-    dem = demand_api.zipf(cat, alpha=1.0, seed=1)
-    eng = SimCacheEngine(cfg, params, engine_config(args), cat.coords,
-                         device=device)
-    eng.calibrate(torch.zeros((args.batch, 16), dtype=torch.int32,
-                              device=device))
+    eng, dem = build_engine(args, cfg, params, cat, device)
 
     if args.streaming:
         run_streaming(eng, cat, args)

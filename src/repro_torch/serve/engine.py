@@ -26,14 +26,26 @@ Counterpart of ``repro.serve.engine`` for this slice of the port:
   shape (kernel F on the card); a promotion rebuilds the runtime cache
   from the duel's slots (``placement_events`` counts these) and, with
   ``refresh_on_promotion``, starts a background re-solve;
+* the on-path strategy plane — with ``EngineConfig.strategy`` a
+  :class:`~repro_torch.core.routing.StrategyPlane` (LCE, LCD,
+  ProbCache, SIM-LRU, RND-LRU; host NumPy, one LRU walk per request)
+  decides every request's server and insertions in place of the
+  simcache, on any network, a multi-ingress one included; it runs no
+  duel and builds no simcache;
+* the refresh gate — with ``EngineConfig.refresh_min_gain`` > 0,
+  ``request_refresh`` first prices the demand snapshot with the Che
+  surrogate (core/analysis/hitrate.py, on the engine's device) and skips
+  the solve when the predicted cost moved less than the gate since the
+  last installed solve (``ServeStats.refresh_skipped`` /
+  ``refresh_triggered``);
 * ``calibrate`` — times the repository prefill, sets the h costs in
   milliseconds and re-installs the held allocation at those costs.
 
 The repository is the dense decoder of repro_torch.models, its prefill
 attention on kernel E when the engine's ``cfg.use_flash_attention`` is
 set. The flags of later slices (``prune``, ``verify``, ``quantize``,
-``sharded``, ``strategy``, ``refresh_min_gain`` > 0) raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+``sharded``) raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import demand as demand_api
+from repro_torch.core.analysis import surrogate_cost
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.objective import DeviceInstance, Instance
 from repro_torch.core.placement import (DuelPlane, device_greedy,
@@ -55,6 +68,7 @@ from repro_torch.core.placement import (DuelPlane, device_greedy,
                                         device_localswap, greedy,
                                         greedy_then_localswap, localswap,
                                         warmstart)
+from repro_torch.core.routing import StrategyPlane
 from repro_torch.core.simcache import SimCacheNetwork
 from repro_torch.core.topology import CacheNetwork, tpu_hierarchy
 from repro_torch.models import model as model_api
@@ -108,18 +122,27 @@ class EngineConfig:
     bucket: bool = True           # power-of-two batch bucketing
     min_bucket: int = 8           # smallest bucket (tiny batches coalesce)
     refresh_on_promotion: bool = False  # duel churn → background re-solve
-    refresh_min_gain: float = 0.0  # > 0 not ported: queue 1 item 13
+    refresh_min_gain: float = 0.0  # analytic refresh gate: skip a
+    #                               requested solve when the Che
+    #                               surrogate's predicted cost moved less
+    #                               than this since the last installed
+    #                               solve (cost units; 0 = gate off)
     warm_start: bool = False      # §4 continuous-limit warm start on
     #                               every refresh whose topology reduces
     warm_polish_iters: int = 512  # LOCALSWAP polish window after it
     #                               (0 = the analytic placement alone)
-    strategy: str | None = None   # not ported: queue 1 item 13
+    strategy: str | None = None   # on-path routing strategy
+    #                               (core/routing.py: lce | lcd |
+    #                               probcache | sim-lru | rnd-lru) in
+    #                               place of the offline placement — the
+    #                               λ-unaware plane, on any network
+    strategy_threshold: float | None = None  # C_a admission threshold θ
+    strategy_seed: int = 0        # probcache / rnd-lru coin seed
 
 
 _LATER_SLICES = (
     ("prune", "item 10"), ("verify", "item 10"), ("quantize", "item 10"),
-    ("sharded", "item 11"), ("strategy", "item 13"),
-    ("refresh_min_gain", "item 13"))
+    ("sharded", "item 11"))
 
 
 def _check_ported(ecfg: EngineConfig) -> None:
@@ -142,6 +165,10 @@ class ServeStats:
     total_cost: float = 0.0
     total_approx_cost: float = 0.0
     model_calls: int = 0
+    # refresh-gate outcomes (EngineConfig.refresh_min_gain): requests the
+    # surrogate skipped, and requests it let through to a solve
+    refresh_skipped: int = 0
+    refresh_triggered: int = 0
     batch_latencies_ms: collections.deque = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=LATENCY_WINDOW))
 
@@ -201,11 +228,6 @@ class SimCacheEngine:
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         _check_ported(ecfg)
-        if net is not None and net.n_ingress > 1:
-            raise NotImplementedError(
-                "a multi-ingress network needs the on-path strategy plane "
-                "(ROADMAP queue 1 item 13); the fused simcache serves one "
-                "ingress row of H")
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
@@ -218,6 +240,14 @@ class SimCacheEngine:
         # per-(ingress, object) empirical demand
         self.counts = np.zeros((self.net.n_ingress, self.coords.shape[0]),
                                dtype=np.float64)
+        # on-path strategy plane: when configured it is the serving
+        # decision maker and the offline simcache is never built
+        self.routing: StrategyPlane | None = None
+        if ecfg.strategy is not None:
+            self.routing = StrategyPlane(
+                self.net, self.coords, metric=ecfg.metric,
+                gamma=ecfg.gamma, strategy=ecfg.strategy,
+                threshold=ecfg.strategy_threshold, seed=ecfg.strategy_seed)
         self.responses: dict[int, np.ndarray] = {}        # payload store
         self.stats = ServeStats()
         self._prefill = model_api.make_prefill(cfg)
@@ -238,6 +268,10 @@ class SimCacheEngine:
         self.solve_timings: dict = {}     # seconds of the last solve
         self.duel: DuelPlane | None = None                # online §5 plane
         self.placement_events = 0                         # duel churn count
+        # the surrogate's cost at the demand snapshot of the last
+        # installed solve: the refresh gate's baseline (None until a
+        # gated engine installs one)
+        self._surrogate_baseline: float | None = None
 
     # -------------------------------------------------- data-plane state
     @property
@@ -392,7 +426,15 @@ class SimCacheEngine:
         slots, pred = self._solve(inst, algo, device)
         self._install(slots, inst)
         self.last_predicted_cost = pred
+        if self.ecfg.refresh_min_gain > 0.0:
+            self._surrogate_baseline = self._surrogate(inst)
         return pred
+
+    def _surrogate(self, inst: Instance) -> float:
+        """The refresh gate's price of a demand snapshot: the Che
+        surrogate's per-request cost on the engine's device."""
+        return surrogate_cost(inst.net, np.asarray(inst.dem.lam, np.float64),
+                              device=self.device)
 
     # ------------------------------------------- double-buffered refresh
     def request_refresh(self, algo: str | None = None,
@@ -400,20 +442,36 @@ class SimCacheEngine:
         """Start a background re-solve against a snapshot of the observed
         demand; the active buffer keeps serving. Returns False (and does
         nothing) if a refresh is already in flight. Install the result
-        with :meth:`poll_refresh`."""
+        with :meth:`poll_refresh`.
+
+        With ``EngineConfig.refresh_min_gain > 0`` the snapshot is first
+        priced by the Che surrogate: if the predicted per-request cost
+        moved less than the gate since the snapshot of the last
+        installed solve, no solve starts (returns False,
+        ``ServeStats.refresh_skipped`` += 1); otherwise
+        ``refresh_triggered`` += 1 and the solve starts."""
         if self._in_flight:
             return False
         algo = algo or self.ecfg.algo
         if device is None:
             device = self.ecfg.device_placement
         inst = self.observed_instance()       # snapshot: lam is a copy
+        surrogate_now: float | None = None
+        if self.ecfg.refresh_min_gain > 0.0:
+            surrogate_now = self._surrogate(inst)
+            base = self._surrogate_baseline
+            if base is not None and \
+                    abs(surrogate_now - base) < self.ecfg.refresh_min_gain:
+                self.stats.refresh_skipped += 1
+                return False
+            self.stats.refresh_triggered += 1
         self._in_flight = True
 
         def work():
             try:
                 slots, pred = self._solve(inst, algo, device)
                 with self._refresh_lock:
-                    self._pending = (slots, inst, pred)
+                    self._pending = (slots, inst, pred, surrogate_now)
             except BaseException:
                 self._in_flight = False       # never wedge the flag
                 raise
@@ -441,7 +499,7 @@ class SimCacheEngine:
             pend, self._pending = self._pending, None
         if pend is None:
             return False
-        slots, inst, pred = pend
+        slots, inst, pred, surrogate_now = pend
         t0 = time.perf_counter()
         self._install(slots, inst)
         stall = time.perf_counter() - t0
@@ -450,6 +508,9 @@ class SimCacheEngine:
         self.last_swap_stall_s = stall
         self.swap_count += 1
         self.last_predicted_cost = pred
+        if surrogate_now is not None:
+            # the installed solve's snapshot becomes the gate baseline
+            self._surrogate_baseline = surrogate_now
         self._in_flight = False
         return True
 
@@ -459,6 +520,11 @@ class SimCacheEngine:
         install it into the placement buffer (version += 1) — shared by
         the offline install, the duel's promotion churn and the
         calibration rebuild."""
+        if self.net.n_ingress > 1:
+            raise ValueError(
+                "the fused simcache serves one ingress row of H; a "
+                "multi-ingress CacheNetwork needs the on-path strategy "
+                "plane (EngineConfig.strategy) instead")
         if slot_cache is None:
             slot_cache = self.net.slot_layout()
         if self.custom_net:
@@ -502,7 +568,18 @@ class SimCacheEngine:
         out: list = [None] * n
         bucket = self.ecfg.bucket
 
-        if self.simcache is None:
+        route_dec = None
+        if self.routing is not None:
+            # on-path strategy plane: a per-request LRU walk over the
+            # ingress's forwarding path picks the server and the
+            # insertions — no simcache, no duel
+            route_dec = self.routing.serve(request_ids, ingress_ids)
+            self.stats.total_cost += float(route_dec.cost.sum())
+            self.stats.total_approx_cost += float(
+                route_dec.approx_cost.sum())
+            self.stats.n_hits += int(route_dec.hit.sum())
+            miss_idx = np.nonzero(~route_dec.hit)[0]
+        elif self.simcache is None:
             miss_idx = np.arange(n)
         else:
             q = self._coords_dev[torch.as_tensor(request_ids,
@@ -545,13 +622,20 @@ class SimCacheEngine:
             logits, _ = self._prefill(self.params, {"tokens": sel})
             resp = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
             self.stats.model_calls += 1
-            if self.simcache is None:
-                # cold engine: repository cost per miss
+            if self.routing is None and self.simcache is None:
+                # cold engine without a strategy plane: repository cost
+                # per miss (the strategy plane priced its misses)
                 self.stats.total_cost += self.ecfg.h_model * len(miss_idx)
             for j, i in enumerate(miss_idx):
                 rid = int(request_ids[i])
                 self.responses[rid] = resp[j:j + 1]
                 out[i] = resp[j:j + 1]
+        if route_dec is not None:
+            # fill hits after the miss prefill: a request can hit a key
+            # that an earlier miss of this batch just inserted, whose
+            # response exists only once the model ran
+            for i in np.nonzero(route_dec.hit)[0]:
+                out[i] = self.responses.get(int(route_dec.payload[i]))
         self.stats.batch_latencies_ms.append(
             (time.perf_counter() - t_batch0) * 1e3)
         return out, self.stats

@@ -29,8 +29,10 @@ multiplexes all of them into a single serving loop:
 
 :class:`DriverStats` aggregates the numbers the serving bench records:
 sustained requests/s, p50/p95/p99 batch latency, refresh/swap counts,
-swap stall totals, NETDUEL placement events, and the placement-version
-trajectory.
+swap stall totals, NETDUEL placement events, the refresh gate's
+skipped and triggered requests, and the placement-version trajectory.
+:meth:`StreamDriver.set_streams` replaces the stream population mid-run
+(demand drift).
 
 Counterpart of ``repro.serve.stream``: arrivals, object ids and ingress
 ids come from the same per-stream numpy generators, so a port driver
@@ -99,6 +101,8 @@ class DriverStats:
         default_factory=lambda: collections.deque(maxlen=LATENCY_WINDOW))
     versions: list = dataclasses.field(default_factory=list)
     refreshes_started: int = 0
+    refresh_skipped: int = 0        # surrogate gate said "not worth it"
+    refresh_triggered: int = 0      # gate evaluated and let it through
     swaps: int = 0
     swap_stall_s: float = 0.0
     max_swap_stall_s: float = 0.0   # max over THIS run's swaps only
@@ -156,6 +160,16 @@ class StreamDriver:
         heapq.heapify(self._heap)
         self._batches_run = 0
 
+    def set_streams(self, streams: list[StreamSpec]) -> None:
+        """Replace the stream population mid-run (demand drift at the
+        session level): new demands/rates/rngs, fresh arrival heap; the
+        engine and its observed-demand window carry over untouched."""
+        if not streams:
+            raise ValueError("need at least one stream")
+        self.streams = [RequestStream(s, i) for i, s in enumerate(streams)]
+        self._heap = [(s.t, s.index) for s in self.streams]
+        heapq.heapify(self._heap)
+
     # ------------------------------------------------------ batch forming
     def _next_batch(self, n_left: int) -> tuple[np.ndarray, np.ndarray]:
         """Pop arrivals in virtual-time order until the batch closes:
@@ -199,6 +213,8 @@ class StreamDriver:
         swaps0 = eng.swap_count
         stall0 = eng.swap_stall_s
         events0 = eng.placement_events
+        skipped0 = eng.stats.refresh_skipped
+        triggered0 = eng.stats.refresh_triggered
         t_run0 = time.perf_counter()
         while st.n_requests < n_requests:
             ids, ings = self._next_batch(n_requests - st.n_requests)
@@ -229,6 +245,8 @@ class StreamDriver:
         st.swaps = eng.swap_count - swaps0
         st.swap_stall_s = eng.swap_stall_s - stall0
         st.placement_events = eng.placement_events - events0
+        st.refresh_skipped = eng.stats.refresh_skipped - skipped0
+        st.refresh_triggered = eng.stats.refresh_triggered - triggered0
         return st
 
     def drain_refresh(self) -> bool:

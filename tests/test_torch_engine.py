@@ -263,20 +263,30 @@ def test_observed_instance_cold_uniform_and_unfloored():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(prune="lsh"), dict(verify=True), dict(quantize=True), dict(sharded=True),
-    dict(strategy="lce"), dict(refresh_min_gain=1.0)])
+    dict(prune="lsh"), dict(verify=True), dict(quantize=True), dict(sharded=True)])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         make_engine(**flag)
 
 
 def test_multi_ingress_net_raises():
+    """Without a strategy plane a multi-ingress network fails where the
+    reference's does: at the install, since the fused simcache serves one
+    ingress row of H (cold serving prices repository misses first)."""
     cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), **SMALL)
     cat = catalog_api.embedding_catalog(n=50, dim=4, seed=1)
     from repro_torch.core.topology import tandem_both
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        SimCacheEngine(cfg, None, EngineConfig(), cat.coords,
-                       net=tandem_both(2, 2, 1.0, 5.0), device="cpu")
+    params = model_api.init_params(cfg, 0, device="cpu")
+    eng = SimCacheEngine(cfg, params, EngineConfig(), cat.coords,
+                         net=tandem_both(2, 2, 1.0, 5.0), device="cpu")
+    assert eng.routing is None
+    ids, prompts = trace(1, cat=cat)[0]
+    eng.serve(ids % 50, prompts, ingress_ids=ids % 2)
+    assert eng.stats.n_hits == 0 and eng.counts.shape == (2, 50)
+    assert eng.stats.total_cost == eng.ecfg.h_model * len(ids)
+    with pytest.raises(ValueError, match="multi-ingress"):
+        eng.refresh_placement()
+    assert eng.simcache is None and eng.placement.version == 0
     # a custom single-ingress net serves with its own costs
     eng = SimCacheEngine(cfg, model_api.init_params(cfg, 0, device="cpu"),
                          EngineConfig(), cat.coords,

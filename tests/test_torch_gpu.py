@@ -783,3 +783,89 @@ def test_duel_kernel_settle_past_promote_cap(cuda, materialize):
         for a, b in zip(carry, c2):
             assert torch.equal(a, b)
         assert torch.equal(out.b1, o2.b1)
+
+
+# ------------------------------------- the Che hit-rate plane on the card
+def _che_case(n=2000):
+    """A 2,000-object catalog rescaled by the reference bench's rule
+    (``rescaled_coords``) on a multi-ingress scale-free scenario."""
+    from repro_torch.core import scenarios
+    from repro_torch.core.analysis import rescaled_coords
+    sc = scenarios.scenario("scale_free", cache_budget=256,
+                            placement="degree", n_ingress=6, seed=0)
+    cat = catalog.embedding_catalog(n=n, dim=100, seed=1)
+    coords, theta = rescaled_coords(sc.net, cat.coords, 1)
+    dem = demand.zipf(cat, alpha=0.9, n_ingress=6, seed=7)
+    return sc.net, coords, theta, dem.lam
+
+
+@pytest.mark.parametrize("q_mode", ["hard", "rnd"])
+def test_hitrate_plane_on_card_matches_cpu(cuda, q_mode):
+    """``similarity_balls`` and ``predict_hitrates`` on the card against
+    the same calls on the CPU: ``idx`` equal, ``q`` equal (1e-6 in the
+    RND-LRU mode), ``dist`` to one f32 step; T to 1e-4 relative, π and
+    the hit probabilities to 1e-5, the hit rate and mean cost to 1e-5
+    relative — the tolerances the CPU holds the reference to
+    (tests/test_torch_hitrate.py): the card's expm1, log1p, exp and scan
+    orders differ from the CPU's by ulps."""
+    from repro_torch.core.analysis import predict_hitrates, similarity_balls
+    net, coords, theta, lam = _che_case()
+    b = similarity_balls(coords, theta, q_mode=q_mode, device=cuda)
+    bc = similarity_balls(coords, theta, q_mode=q_mode, device="cpu")
+    assert b.mean_size > 2.0
+    np.testing.assert_array_equal(b.idx, bc.idx)
+    np.testing.assert_allclose(b.q, bc.q, rtol=0,
+                               atol=1e-6 if q_mode == "rnd" else 0.0)
+    np.testing.assert_allclose(b.dist, bc.dist, rtol=2.0 ** -23, atol=0)
+    p = predict_hitrates(net, lam, b, device=cuda)
+    pc = predict_hitrates(net, lam, bc, device="cpu")
+    fin = np.isfinite(pc.T)
+    np.testing.assert_array_equal(np.isfinite(p.T), fin)
+    np.testing.assert_allclose(p.T[fin], pc.T[fin], rtol=1e-4)
+    for f in ("occupancy", "hit_prob", "serve_prob"):
+        np.testing.assert_allclose(getattr(p, f), getattr(pc, f), rtol=0,
+                                   atol=1e-5, err_msg=f)
+    assert p.hit_rate == pytest.approx(pc.hit_rate, rel=1e-5)
+    assert p.mean_cost == pytest.approx(pc.mean_cost, rel=1e-5)
+
+
+def test_cache_pass_scatter_is_bitwise_run_to_run(cuda):
+    """The reset-rate scatter (``index_put_`` with accumulate, which sorts
+    its indices on CUDA) gives the same bits on every run, on balls
+    whose members repeat across rows, padding left out."""
+    from repro_torch.core.analysis import hitrate, similarity_balls
+    net, coords, theta, lam = _che_case()
+    b = similarity_balls(coords, theta, device=cuda)
+    n = b.n_objects
+    g = torch.Generator().manual_seed(5)
+    pi = torch.rand(n, generator=g).to(cuda)
+    rate = torch.rand(n, generator=g).to(cuda)
+    idx = torch.as_tensor(b.idx.astype(np.int64), device=cuda)
+    q = torch.as_tensor(b.q, device=cuda)
+    dist = torch.as_tensor(b.dist, device=cuda)
+    first = hitrate._cache_pass(pi, rate, idx, q, dist)
+    for _ in range(5):
+        again = hitrate._cache_pass(pi, rate, idx, q, dist)
+        for x, y in zip(first, again):
+            assert torch.equal(x, y)
+    # padding left out of the scatter changes no bit
+    members = (idx.reshape(-1) < n).nonzero()[:, 0]
+    for x, y in zip(first, hitrate._cache_pass(pi, rate, idx, q, dist,
+                                               members)):
+        assert torch.equal(x, y)
+
+
+def test_surrogate_cost_is_bitwise_run_to_run(cuda):
+    """The refresh gate compares surrogate costs across calls: on the
+    card they repeat to the bit (exact-hit balls, and similarity balls
+    with their repeated members)."""
+    from repro_torch.core.analysis import similarity_balls, surrogate_cost
+    net, coords, theta, lam = _che_case()
+    hier = topology.tpu_hierarchy(64, 128, 256, 15.0, 150.0, 1000.0)
+    lam1 = lam.sum(axis=0, keepdims=True)
+    costs = {surrogate_cost(hier, lam1, device=cuda) for _ in range(4)}
+    assert len(costs) == 1
+    b = similarity_balls(coords, theta, device=cuda)
+    costs = {surrogate_cost(net, lam, balls=b, device=cuda)
+             for _ in range(4)}
+    assert len(costs) == 1

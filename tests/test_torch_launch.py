@@ -4,16 +4,16 @@ on the CPU.
 Its two loops run on a CPU engine at the reference launcher's sizes
 (granite's smoke config, ``embedding_catalog(n=1000, dim=32, seed=0)``,
 Zipf α = 1.0, batch 16, 256 requests, ``calibrate()`` first), with and
-without ``--warm-start``; the flags of later slices raise
-``NotImplementedError`` naming their ROADMAP item; and the command
-itself refuses to run without a card. Both loops run on
-the card in chip_smoke.py's ``launch`` phase. ``--netduel`` is held in
-tests/test_torch_duel_engine.py.
+without ``--warm-start``, and with ``--scenario`` through the strategy
+plane (no calibration); and the command itself refuses to run without a
+card. The loops run on the card in chip_smoke.py's ``launch`` phase.
+``--netduel`` is held in tests/test_torch_duel_engine.py.
 """
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -114,19 +114,48 @@ def test_warm_start_serves(streaming, capsys):
     assert eng.stats.mean_cost < eng.ecfg.h_model
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--scenario", "isp"], "item 13"),
-    (["--scenario", "scale_free", "--strategy", "sim-lru"], "item 13")])
-def test_deferred_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        launch.main(["--arch", "granite-3-2b", *flags])
+@pytest.mark.parametrize("strategy", ["lce", "sim-lru"])
+@pytest.mark.parametrize("streaming", [False, True],
+                         ids=["batch_loop", "streaming"])
+def test_scenario_serves_through_the_strategy_plane(strategy, streaming,
+                                                    capsys):
+    """``--scenario scale_free --strategy …``: the generated multi-ingress
+    network served by the strategy plane, with no calibration and no
+    placement refresh, in both loops."""
+    argv = ["--arch", "granite-3-2b", "--scenario", "scale_free",
+            "--strategy", strategy]
+    if streaming:
+        argv += ["--streaming", "--requests", "128"]
+    args = launch.parser().parse_args(argv)
+    cfg = get_smoke_config(args.arch)
+    cat = catalog_api.embedding_catalog(n=1000, dim=32, seed=0)
+    eng, dem = launch.build_engine(
+        args, cfg, model_api.init_params(cfg, 0, device="cpu"), cat, "cpu")
+    assert eng.routing is not None and eng.routing.strategy == strategy
+    assert eng.net.n_ingress == args.ingress == dem.n_ingress
+    assert eng.net.total_slots == args.cache_budget
+    if streaming:
+        launch.run_streaming(eng, cat, args)
+        assert eng.stats.n_requests == 128 + 16
+    else:
+        launch.run_batch_loop(eng, cfg, dem, args)
+        assert eng.stats.n_requests == 256
+    out = capsys.readouterr().out
+    assert "[serve] scenario scale_free: " in out
+    assert f"strategy {strategy}" in out and "predicted C(A)" not in out
+    assert eng.placement.version == 0 and eng.refresh_count == 0
+    assert eng.ecfg.h_model == 10.0                   # not calibrated
+    assert len(np.unique(eng.counts.nonzero()[0])) > 1  # several ingresses
+    assert eng.stats.n_hits > 0
+    assert eng.stats.mean_cost < float(eng.net.h_repo.max())
 
 
 def test_choices_are_the_reference_names():
     from repro.core.routing import STRATEGIES
     from repro.core.scenarios import GENERATORS
-    assert launch.STRATEGIES == STRATEGIES
-    assert launch.SCENARIOS == tuple(sorted(GENERATORS))
+    choices = {a.dest: a.choices for a in launch.parser()._actions}
+    assert tuple(choices["strategy"]) == STRATEGIES
+    assert tuple(choices["scenario"]) == tuple(sorted(GENERATORS))
 
 
 def test_command_without_a_card_exits_nonzero():

@@ -25,7 +25,9 @@ MODULES = [
     "repro_torch.kernels.gain.ops", "repro_torch.core.placement.netduel",
     "repro_torch.kernels.duel", "repro_torch.kernels.duel.duel",
     "repro_torch.core.placement.continuous",
-    "repro_torch.core.placement.warmstart"]
+    "repro_torch.core.placement.warmstart", "repro_torch.core.scenarios",
+    "repro_torch.core.routing", "repro_torch.core.analysis",
+    "repro_torch.core.analysis.hitrate"]
 
 _PROBE = """
 import sys

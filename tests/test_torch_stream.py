@@ -226,9 +226,8 @@ def test_stream_driver_stall_window_is_per_run():
 
 
 class _Recorder:
-    """A stand-in engine that records what the driver hands it (the
-    port's engine serves one ingress until the strategy plane, queue 1
-    item 13, lands)."""
+    """A stand-in engine that records what the driver hands it, so that
+    the driver's ingress ids are checked apart from any engine."""
 
     def __init__(self, vocab):
         self.cfg = dataclasses.replace(get_smoke_config("granite-3-2b"),
