@@ -49,6 +49,19 @@ Phases, one line each before the last:
    outside the counted runs, A's served batch and B on each level held
    against their plain versions at these shapes (split plans of their
    own).
+   Then ``compress``: the compressed and pruned data plane at 10⁶ keys
+   (D 64, two levels, 64 queries; the reference's
+   ``scripts/quantized_smoke.py --full``, unsharded): the exact fused
+   lookup, then verified quantize, LSH, k-means and LSH + quantize runs,
+   each bitwise the exact one with kernel A launched once per rescore
+   plus once per re-scan (the re-scanned share printed), the unverified
+   quantized run admissible; kernel A held against its plain version at
+   every shape the phase gives it (the exact scan over 10⁶ keys, each
+   run's rescore over its gathered rows and its re-scan); times from
+   CUDA events and the profiler, split into first pass, union and
+   gather, rescore and re-scan; table builds on the host. The same four
+   runs on the ``bigcache`` network's 16 batches against its fused
+   results, A held likewise on the first batch.
    Then ``duel``: kernel F, the NETDUEL scan between promotions, at the
    engine's scale (10⁵ objects, K 448, C_a streamed, from random slots,
    4,096 requests, window 256), once through F (counted) and once
@@ -63,8 +76,10 @@ Phases, one line each before the last:
    zeroed just before it and read just after it. Then checks outside
    it: the installed lookup pricing the observed window at the
    predicted C(A), the looped lookup (kernel B, its own path, counted
-   alone) serving the last warm batch as the fused one did, and
-   ``calibrate()`` timed once.
+   alone) serving the last warm batch as the fused one did, the 16
+   warm batches re-served on the installed placement with the flags
+   off and with each verified flag set (quantize, LSH, LSH + quantize),
+   equal to the digit, and ``calibrate()`` timed once.
    Then ``warmstart``: the same engine with ``warm_start`` on, on the
    same weights and batches — every refresh the §4 continuous-limit
    warm start (solve and Prop 4.2 band map in NumPy, a 512-request
@@ -105,13 +120,20 @@ Phases, one line each before the last:
    inputs) and 4,096 requests through the engine's strategy plane for
    each of the five strategies (kernel E on the misses, counted): hit
    rate, mean cost and batch percentiles beside GREEDY's C(A).
+   Then ``gain_quant``: on the stream's catalog and the engine's
+   hierarchy, ``placement_gains(quantize=True)`` never below kernel C's
+   gains less their tolerance, ``device_greedy(quantize=True)`` bitwise
+   the exact-seeded allocation, both timed.
    Then ``hitrate``: the Che plane on the card on the reference's
    full-scale network (scale-free, 41 caches, 4,096 slots, 6
-   ingresses) at 20,000 objects (cut from 10⁶: no LSH enumeration yet):
-   exact balls, the SIM-LRU and RND-LRU predictions against a 40,000-
-   request replay, the balls held against the CPU's on a slice, and the
-   refresh surrogate's time a call at 10⁵ and 10⁶ objects, its cost
-   bitwise from call to call.
+   ingresses) at 20,000 objects: exact balls, the SIM-LRU and RND-LRU
+   predictions against a 40,000-request replay, the balls held against
+   the CPU's on a slice, and the refresh surrogate's time a call at 10⁵
+   and 10⁶ objects, its cost bitwise from call to call; then the
+   reference bench's 10⁶-object path: LSH balls (build, card and host
+   time; the balls' sizes before the cut to 64), the fixed point, the bench's check, LSH within exact on a
+   20,000-object slice and the card's LSH balls against the CPU's on
+   2,000.
    Then ``gate``: the ``stream`` configuration with
    ``refresh_min_gain`` 100: every stationary request skipped (no solve,
    no swap), a drift to uniform demand (``set_streams``) triggering a
@@ -129,7 +151,11 @@ Phases, one line each before the last:
    launches are those of the ``duel_engine`` run; A's entry also carries
    its launches in the ``warmstart`` run, C's and E's their launches in
    the ``scenario`` runs, and every entry its launches in the ``gate``
-   run.
+   run; A's also its launches over the ``compress`` runs. Beside the
+   kernels, ``xla_paths``: item 10's torch paths (``_quantized_select``,
+   ``candidate_matrix`` + ``candidate_union``, ``_lb_gains_tiles``,
+   ``_cand_ca``; XLA in the reference), each timed beside the exact path
+   it sits in front of.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script then exits non-zero and prints no result. It
@@ -193,14 +219,18 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
 def device_ms(torch, fn, iters: int, match: str, tries: int = 3) -> dict:
     """Device time per call of ``fn`` from torch.profiler's trace (its
     CUDA events, as ``trace_solve.py`` reads them): the kernels whose name
-    contains ``match``, their launches per call, and the memsets beside
-    them, over ``iters`` calls after one warm-up call. Now and then (once
-    in ~60 windows on the card) a window's trace comes back without its
-    device events; a window whose kernel count is not a whole number per
-    call is taken again, up to ``tries`` times."""
+    contains ``match`` (every device event of the call, kernels, copies
+    and memsets, with ``match=""``), their launches per call, and the
+    memsets beside them, over ``iters`` calls after one warm-up call.
+    Now and then (once in ~60 windows on the card) a window's trace comes
+    back without its device events, so a window is kept only when its
+    count is a whole number per call or, with ``match=""``, the same as
+    an earlier window's; else it is taken again, up to ``tries`` times,
+    and then refused."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -210,11 +240,14 @@ def device_ms(torch, fn, iters: int, match: str, tries: int = 3) -> dict:
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         kern = [e for e in dev if match in e.name]
-        if kern and len(kern) % iters == 0:
+        if kern and (len(kern) % iters == 0
+                     or (not match and len(kern) in seen)):
             break
+        seen.append(len(kern))
     else:
         raise RuntimeError(f"the profiler recorded no whole window of "
-                           f"{match} kernels in {tries} tries")
+                           f"{match or 'device'} events in {tries} tries "
+                           f"(counts {seen})")
     mem = [e for e in dev if e.name.startswith("Memset")]
     span = lambda es: sum(e.time_range.end - e.time_range.start  # noqa
                           for e in es) / 1e3 / iters
@@ -417,9 +450,10 @@ def _plan_fields(torch, Q, K, D) -> dict:
 
 def hold_fused(torch, q, keys, h_key, meta, h_repo, got) -> dict:
     """Kernel A's outputs ``got`` (l2, γ = 1, keys segmented by ascending
-    level) against its plain version on the same inputs: every cost
-    within the per-query tolerance, and a differing winner (a key named
-    by its level and slot) only where the plain version sees a near-tie:
+    level, a whole layout or rows gathered from one) against its plain
+    version on the same inputs: every cost within the per-query
+    tolerance, and a differing winner (a key named by its level and
+    slot) only where the plain version sees a near-tie:
     its own cost at the kernel's key within 2·tol of its min. The fields
     of the check and ``ok``."""
     from repro_torch.kernels.knn.ref import _dense_ca, fused_lookup_ref
@@ -432,11 +466,18 @@ def hold_fused(torch, q, keys, h_key, meta, h_repo, got) -> dict:
     full = torch.where(meta[3][None, :] > 0,
                        _dense_ca(q, keys, "l2", 1.0) + h_key[None, :],
                        torch.full((Q, K), 3.0e38, device=q.device))
-    start = torch.searchsorted(meta[0].contiguous(), torch.arange(
-        int(meta[0].max()) + 1, dtype=torch.int32, device=q.device))
+    # the valid keys' (level, slot) ascend with their index, in a whole
+    # layout and in rows gathered from one
+    valid = torch.nonzero(meta[3] > 0).reshape(-1)
+    span = int(meta[1].max()) + 1
+    code = meta[0, valid].long() * span + meta[1, valid].long()
 
     def key_index(lvl, slot):                  # −1: the repository
-        return torch.where(lvl >= 0, start[lvl.clamp_min(0).long()] + slot,
+        if valid.numel() == 0:
+            return torch.full_like(lvl, -1).long()
+        at = torch.searchsorted(code, lvl.clamp_min(0).long() * span
+                                + slot.long())
+        return torch.where(lvl >= 0, valid[at.clamp_max(valid.numel() - 1)],
                            -1)
 
     idx_k, idx_p = key_index(lvl_k, slot_k), key_index(lvl_p, slot_p)
@@ -624,6 +665,105 @@ def phase_stable(torch, coords):
         raise RuntimeError(f"shape-stable distances differ: {checks}")
 
 
+LOOKUP_FIELDS = ("cost", "approx_cost", "level", "slot", "payload", "hit")
+
+
+def bitwise_equal(torch, a, b) -> bool:
+    """Two ``LookupResult``s equal in all six fields, floats bit for
+    bit."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return all(torch.equal(bits(getattr(a, f)), bits(getattr(b, f)))
+               for f in LOOKUP_FIELDS)
+
+
+class timed_parts:
+    """Context manager: wraps ``attr`` of ``module`` for each (part,
+    module, attr) so that every call is timed to the end of its device
+    work (a synchronize before and after) and summed under ``part``;
+    restores them on exit. ``ms`` holds the sums."""
+
+    def __init__(self, torch, parts):
+        self.torch, self.parts, self.ms, self.saved = torch, parts, {}, []
+
+    def __enter__(self):
+        torch = self.torch
+        for part, module, attr in self.parts:
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+            self.ms.setdefault(part, 0.0)
+
+            def call(*a, _fn=fn, _part=part, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.ms[_part] += (time.perf_counter() - t) * 1e3
+                return out
+            setattr(module, attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+
+
+class captured:
+    """Context manager: wraps ``attr`` of ``module`` for each (name,
+    module, attr, keep) so that ``keep(args, kwargs, result)`` of every
+    call, where it is not None, is appended to ``calls[name]``; restores
+    them on exit."""
+
+    def __init__(self, targets):
+        self.targets, self.calls, self.saved = targets, {}, []
+
+    def __enter__(self):
+        for name, module, attr, keep in self.targets:
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+            kept = self.calls.setdefault(name, [])
+
+            def call(*a, _fn=fn, _keep=keep, _kept=kept, **kw):
+                out = _fn(*a, **kw)
+                item = _keep(a, kw, out)
+                if item is not None:
+                    _kept.append(item)
+                return out
+            setattr(module, attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+
+
+def hold_a_calls(torch, net, q, flags) -> list:
+    """Kernel A's every call in one lookup of ``q`` with ``flags`` — the
+    rescore over the gathered rows and the verifier's re-scan over the
+    whole layout, at the shapes and split plans the path gives them —
+    each held against its plain version (:func:`hold_fused`). The checks'
+    fields with the call's role and shape."""
+    from repro_torch.core import simcache
+    from repro_torch.kernels.knn import ops
+    keep = lambda a, kw, out: (a, kw, out)  # noqa: E731
+    with captured([("rescore", ops, "fused_lookup", keep),
+                   ("rescan", simcache, "fused_lookup", keep)]) as cap:
+        net.lookup(q, **flags)
+    held = []
+    for role, calls in cap.calls.items():
+        for (qs, keys, h_key, meta), kw, out in calls:
+            if (kw["metric"], kw["gamma"], kw["repo_level"],
+                    kw.get("fold_repo", True)) != ("l2", 1.0, -1, True):
+                raise RuntimeError(f"A's {role} call is not the l2, γ 1, "
+                                   f"folded lookup hold_fused checks: {kw}")
+            held.append(dict(
+                hold_fused(torch, qs, keys, h_key, meta, kw["h_repo"], out),
+                role=role, Q=qs.shape[0], K=keys.shape[0], D=keys.shape[1],
+                **_plan_fields(torch, qs.shape[0], keys.shape[0],
+                               keys.shape[1])))
+    return held
+
+
 BIGCACHE_SLOTS = (4096, 16_384, 45_056)    # 65,536 keys in all
 BIGCACHE_H = (0.0, 15.0, 150.0)
 
@@ -676,12 +816,7 @@ def phase_bigcache(torch, cat, dem):
     fused, f_counts, f_secs = serve(net)
     loop, l_counts, l_secs = serve(looped)
 
-    def bits(t):
-        return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-    fields = ("cost", "approx_cost", "level", "slot", "payload", "hit")
-    equal = all(torch.equal(bits(getattr(a, f)), bits(getattr(b, f)))
-                for a, b in zip(fused, loop) for f in fields)
+    equal = all(bitwise_equal(torch, a, b) for a, b in zip(fused, loop))
     cost = torch.cat([r.cost for r in fused])
     level = torch.cat([r.level for r in fused])
     f0 = fused[0]
@@ -715,11 +850,204 @@ def phase_bigcache(torch, cat, dem):
               l_counts["knn"] == 3 * n_batches, l_counts["fused_lookup"] == 0]
     if not all(checks):
         raise RuntimeError(f"bigcache phase failed its checks: {checks}")
-    return res
+    return net, queries, fused
+
+
+# the compress phase: the reference's scripts/quantized_smoke.py --full
+# on one card, unsharded
+COMPRESS_KEYS, COMPRESS_DIM, COMPRESS_QUERIES = 1_000_000, 64, 64
+COMPRESS_RUNS = (("quantize_verify", dict(quantize=True, verify=True)),
+                 ("lsh_verify", dict(prune="lsh", verify=True)),
+                 ("kmeans_verify", dict(prune="kmeans", verify=True)),
+                 ("lsh_quantize_verify", dict(prune="lsh", quantize=True,
+                                              verify=True)))
+
+
+def _lookup_parts(torch):
+    """The parts of a pruned or quantized lookup, for ``timed_parts``:
+    the first pass (int8 select, candidate matrix, the gathered rows'
+    quantization), the union and gather, the rescore (kernel A over the
+    gathered rows) and the verifier's re-scan (kernel A over all keys)."""
+    from repro_torch.core import simcache
+    from repro_torch.kernels.knn import ops
+    return [("first_pass_ms", ops, "_quantized_select"),
+            ("first_pass_ms", ops, "candidate_matrix"),
+            ("first_pass_ms", ops.quant, "quantize_rows"),
+            ("union_gather_ms", ops, "candidate_union"),
+            ("union_gather_ms", ops, "gather_candidate_rows"),
+            ("union_gather_ms", ops, "unscanned_h_bound"),
+            ("rescore_ms", ops, "fused_lookup"),
+            ("rescan_ms", simcache, "fused_lookup")]
+
+
+def flagged_runs(torch, net, queries, exact, runs, iters: int) -> dict:
+    """Each flagged lookup of ``runs`` over every batch of ``queries``:
+    its launch counts (zeroed just before, read just after), the
+    verifier's re-scans, bitwise equality with ``exact`` (the fused
+    results), then, outside the counted run, its time a batch from CUDA
+    events, its device time from torch.profiler (every device event of
+    the call), its parts timed to the end of their device work, and each
+    of kernel A's calls in the first batch's lookup held against A's
+    plain version (:func:`hold_a_calls`)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    rows = {}
+    for name, flags in runs:
+        calls0, q0 = net.rescan_calls, net.rescan_queries
+        reset_launch_counts()
+        t = time.perf_counter()
+        got = [net.lookup(q, **flags) for q in queries]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = launch_counts()
+        rescan_calls = net.rescan_calls - calls0
+        rescanned = net.rescan_queries - q0
+        n_q = sum(q.shape[0] for q in queries)
+        q = queries[0]
+        with timed_parts(torch, _lookup_parts(torch)) as parts:
+            net.lookup(q, **flags)
+        held = hold_a_calls(torch, net, q, flags)
+        rows[name] = dict(
+            bitwise_equal_exact=all(bitwise_equal(torch, a, b)
+                                    for a, b in zip(got, exact)),
+            fused_lookup_launches=counts["fused_lookup"],
+            launches_expected=len(queries) + rescan_calls,
+            rescan_calls=rescan_calls,
+            rescanned_share=rescanned / n_q,
+            first_run_s=secs,
+            ms=cuda_ms(torch, lambda: net.lookup(q, **flags), iters),
+            device_ms=device_ms(torch, lambda: net.lookup(q, **flags),
+                                iters, "", tries=5)["device_ms"],
+            parts=parts.ms, held_against_plain=held,
+            held_ok=any(h["role"] == "rescore" for h in held)
+            and all(h["ok"] for h in held))
+    return rows
+
+
+def phase_compress(torch, big) -> dict:
+    """The compressed and pruned data plane (item 10) at the reference's
+    headline size: 10⁶ keys, D 64, from ``standard_normal`` (seed 0) in
+    two levels of 500,000 keys at h 0 and 0.5, h_repo 1e9; 64 queries
+    (catalog rows plus 0.05 noise); ``SimHashPolicy(n_tables=4,
+    n_bits=16, n_probes=2, max_candidates=16384)`` and the default
+    ``KMeansPolicy``. The exact fused lookup (kernel A over 10⁶ keys),
+    then four verified runs — quantize, LSH, k-means, LSH + quantize —
+    each bitwise the exact one with kernel A launched once per rescore
+    plus once per re-scan, and the unverified quantized run, admissible.
+    Kernel A is held against its plain version at each shape the phase
+    gives it: the exact scan over 10⁶ keys, and every rescore and re-scan
+    of each verified run. Table builds timed on the host. Then the same
+    four runs on the ``bigcache`` network's 16 batches against its fused
+    results."""
+    from repro_torch.core.simcache import CacheLevel, SimCacheNetwork
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.knn import KMeansPolicy, SimHashPolicy
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on: the int8 certificate needs IEEE "
+                           "fp32 products")
+    n, d, b = COMPRESS_KEYS, COMPRESS_DIM, COMPRESS_QUERIES
+    rng = np.random.default_rng(0)
+    coords = rng.standard_normal((n, d)).astype(np.float32)
+    half = n // 2
+    cj = torch.as_tensor(coords, device="cuda")
+    levels = [CacheLevel(keys=cj[:half], values=torch.arange(
+                  half, dtype=torch.int32, device="cuda"), h=0.0),
+              CacheLevel(keys=cj[half:], values=torch.arange(
+                  half, n, dtype=torch.int32, device="cuda"), h=0.5)]
+    pol = SimHashPolicy(n_tables=4, n_bits=16, n_probes=2,
+                        max_candidates=16384)
+    net = SimCacheNetwork(levels=levels, h_repo=1e9, metric="l2",
+                          candidate_policy=pol)
+    q = torch.as_tensor(coords[rng.integers(0, n, b)] + 0.05
+                        * rng.standard_normal((b, d)).astype(np.float32),
+                        device="cuda")
+    net.fused_layout()
+    builds = {}
+    for name, fn in (("lsh_s", lambda: net._tables_for(pol)),
+                     ("kmeans_s", lambda: net._tables_for(KMeansPolicy())),
+                     ("quant_rows_s", lambda: net._quant_rows())):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        builds[name] = time.perf_counter() - t
+    reset_launch_counts()                         # the exact run
+    exact = net.lookup(q)
+    torch.cuda.synchronize()
+    exact_counts = launch_counts()
+    exact_ms = cuda_ms(torch, lambda: net.lookup(q), 5)
+    exact_dev = device_ms(torch, lambda: net.lookup(q), 5, "",
+                          tries=5)["device_ms"]
+    keys, h_key, meta = net.fused_layout()
+    exact_held = dict(hold_fused(torch, q, keys, h_key, meta, net.h_repo, (
+        exact.cost, exact.approx_cost, exact.level, exact.slot,
+        exact.payload)), **_plan_fields(torch, b, n, d))
+    runs = flagged_runs(torch, net, [q], [exact], COMPRESS_RUNS, 5)
+    raw = net.lookup(q, quantize=True)            # unverified
+    admissible = bool((raw.cost >= exact.cost).all()
+                      and (raw.cost <= net.h_repo).all())
+    # the certificate's premise on a sampled tile: lb ≤ the f64 C_a
+    from repro_torch.kernels import quant
+    kq = net._quant_rows()
+    lb = quant.lb_approx_cost_tiles(
+        q, quant.QuantizedRows(*(t[:4096] for t in kq)), "l2", 1.0)
+    lb_slack = float((torch.cdist(q.double(), cj[:4096].double())
+                      - lb.double()).min())
+    del lb
+    # the item-10 XLA paths at these shapes, beside kernel A's exact scan
+    from repro_torch.kernels.knn import ops
+    proj, buckets, n_probes = net._tables_for(pol)
+    select_ms = cuda_ms(torch, lambda: ops._quantized_select(
+        q, h_key, meta[3] > 0, kq, ops.DEFAULT_TOP_T, ops.DEFAULT_QTILE,
+        "l2", 1.0), 5)
+    cand_ms = cuda_ms(torch, lambda: ops.candidate_union(
+        ops.candidate_matrix("lsh", proj, buckets, q, n_probes), n,
+        pol.resolve_cap(n)), 5)
+    del raw
+
+    big_net, big_q, big_fused = big
+    big_runs = flagged_runs(torch, big_net, big_q, big_fused,
+                            COMPRESS_RUNS, 5)
+    res = dict(keys=n, dim=d, queries=b, levels=[half, n - half],
+               h=[0.0, 0.5], h_repo=1e9, policy="SimHashPolicy(4, 16, 2, "
+               "max_candidates=16384)", table_builds=builds,
+               exact=dict(ms=exact_ms, device_ms=exact_dev,
+                          launches=exact_counts["fused_lookup"],
+                          held_against_plain=exact_held),
+               runs=runs, unverified_quantize_admissible=admissible,
+               lb_below_f64_ca_min_slack=lb_slack,
+               bigcache=dict(keys=sum(BIGCACHE_SLOTS), dim=100,
+                             batches=len(big_q), batch=big_q[0].shape[0],
+                             runs=big_runs))
+    log("compress", **res)
+    every = list(runs.values()) + list(big_runs.values())
+    checks = [exact_counts["fused_lookup"] == 1, admissible, lb_slack >= 0,
+              exact_held["ok"], all(r["held_ok"] for r in every),
+              all(r["bitwise_equal_exact"] for r in every),
+              all(r["fused_lookup_launches"] == r["launches_expected"]
+                  for r in every)]
+    if not all(checks):
+        raise RuntimeError(f"compress phase failed its checks: {checks}")
+    xla = [dict(name="_quantized_select",
+                replaces="src/repro/kernels/knn/ops.py:213",
+                shape=dict(Q=b, K=n, D=d, top_t=ops.DEFAULT_TOP_T),
+                ms=select_ms, exact_path="fused_lookup (A), K 10⁶",
+                exact_ms=exact_ms),
+           dict(name="candidate_matrix + candidate_union",
+                replaces="src/repro/kernels/knn/lsh.py:293, :327",
+                shape=dict(Q=b, K=n, D=d, tables=4, bits=16, probes=2),
+                ms=cand_ms, exact_path="fused_lookup (A), K 10⁶",
+                exact_ms=exact_ms)]
+    launches = sum(r["fused_lookup_launches"] for r in every)
+    return dict(launches=launches, xla=xla)
 
 
 # the engine phase's serving: batches of 256 requests, 16-token prompts
 ENGINE_BATCHES, ENGINE_BATCH, ENGINE_SEQ = 16, 256, 16
+# the verified flag sets the engine re-serves its warm batches with
+ENGINE_RERUNS = (("quantize", dict(quantize=True, verify=True)),
+                 ("lsh", dict(prune="lsh", verify=True)),
+                 ("lsh_quantize", dict(prune="lsh", quantize=True,
+                                       verify=True)))
 
 
 def serve_batches(eng, cfg, dem, seed):
@@ -740,7 +1068,7 @@ def serve_batches(eng, cfg, dem, seed):
     row = dict(hit_rate=s.hit_rate, mean_cost=s.mean_cost,
                model_calls=s.model_calls, requests=s.n_requests,
                seconds=time.perf_counter() - t, p50_ms=s.p50_ms,
-               p99_ms=s.p99_ms)
+               p95_ms=s.p95_ms, p99_ms=s.p99_ms)
     eng.stats = type(eng.stats)()
     return row, last
 
@@ -819,6 +1147,20 @@ def phase_engine(torch, cat, dem):
     twin["launches"] = twin_counts
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
+    # the compressed and pruned data plane behind the engine: the warm
+    # batches re-served on the installed placement with the flags off,
+    # then with each verified flag set — to the digit the same
+    reruns = {}
+    for name, flags in (("off", {}),) + ENGINE_RERUNS:
+        eng.ecfg = dataclasses.replace(ecfg, **flags)
+        q0 = eng.simcache.rescan_queries
+        row, _ = serve_batches(eng, cfg, dem, 2)
+        reruns[name] = dict(row, rescanned=eng.simcache.rescan_queries - q0)
+    eng.ecfg = ecfg
+    same = {n: all(r[k] == reruns["off"][k]
+                   for k in ("hit_rate", "mean_cost", "model_calls"))
+            for n, r in reruns.items()}
+
     # the repository's logits on one prompt batch: finite, full shape
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (8, seq)),
                            device="cuda")
@@ -834,6 +1176,7 @@ def phase_engine(torch, cat, dem):
                predicted_cost=pred, priced=priced, refresh_s=refresh_s,
                **timings,
                warm=warm, twin=twin, background=bg, launches=counts,
+               flagged_reruns=reruns, reruns_equal_flags_off=same,
                max_memory_allocated_gib=peak_gb, logits_ok=logits_ok,
                calibrate_ms=calib_ms)
     log("engine", **res)
@@ -841,7 +1184,7 @@ def phase_engine(torch, cat, dem):
               twin_counts["knn"] > 0, warm["hit_rate"] > 0,
               warm["mean_cost"] < h_model, logits_ok,
               all(twin[n] for n in ("level", "slot", "payload", "hit")),
-              priced["ok"],
+              priced["ok"], all(same.values()),
               started and done and swapped and bg["version"] == v0 + 1]
     if not all(checks):
         raise RuntimeError(f"engine phase failed its checks: {checks}")
@@ -1839,6 +2182,70 @@ def phase_scenario(torch, params):
                                     for c in counts.values()))
 
 
+def phase_gain_quant(torch) -> dict:
+    """The quantized GREEDY seeds (item 10) on the stream's catalog
+    (20,000 objects, D 100) under its first stream's Zipf(1.0) demand and
+    the engine's three-level hierarchy (64 / 128 / 256 slots, h 15 / 150
+    / 1000): ``placement_gains(quantize=True)`` (``_lb_gains_tiles``, no
+    kernel C) against kernel C's exact gains — never below them, less
+    their C_a tolerance (``gain_tolerance``) and 1e-4 relative for the
+    f32 sums — and ``device_greedy(quantize=True)`` bitwise the
+    exact-seeded allocation; both timed, kernel C's launches counted."""
+    from repro_torch.core import catalog as catalog_api
+    from repro_torch.core import demand as demand_api
+    from repro_torch.core import topology
+    from repro_torch.core.objective import DeviceInstance, Instance
+    from repro_torch.core.placement import device_greedy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    cat = catalog_api.embedding_catalog(n=20_000, dim=100, seed=1)
+    dem = demand_api.zipf(cat, alpha=1.0, seed=1)
+    net = topology.tpu_hierarchy(64, 128, 256, 15.0, 150.0, 1000.0)
+    dinst = DeviceInstance.from_instance(Instance(net=net, cat=cat,
+                                                  dem=dem),
+                                         materialize_ca=False)
+    cur = dinst.initial_costs()
+    exact = dinst.gains(cur)
+    quant = dinst.gains(cur, quantize=True)
+    tol = gain_tolerance(torch, dinst.coords, dinst.lam).T \
+        + 1e-4 * exact.abs()
+    slack = quant - (exact - tol)
+    admissible = bool((slack >= 0).all())
+    times = dict(exact_ms=cuda_ms(torch, lambda: dinst.gains(cur), 3),
+                 quantized_ms=cuda_ms(
+                     torch, lambda: dinst.gains(cur, quantize=True), 3))
+    greedy = {}
+    for name, kw in (("exact", {}), ("quantized", dict(quantize=True))):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        slots = device_greedy(dinst, **kw)
+        greedy[name] = dict(slots=slots, seconds=time.perf_counter() - t,
+                            launches=launch_counts()["placement_gains"])
+    equal = bool(np.array_equal(greedy["exact"]["slots"],
+                                greedy["quantized"]["slots"]))
+    res = dict(catalog=cat.n, dim=cat.dim, demand="zipf1.0", caches=3,
+               slots=int(net.total_slots), gains_admissible=admissible,
+               least_slack=float(slack.min()),
+               upper_bound_share=float((quant > exact + tol).float()
+                                       .mean()),
+               **times, greedy_equal=equal,
+               greedy={k: dict(seconds=v["seconds"],
+                               kernel_c_launches=v["launches"],
+                               picks=int((v["slots"] >= 0).sum()))
+                       for k, v in greedy.items()})
+    log("gain_quant", **res)
+    checks = [admissible, equal, greedy["quantized"]["launches"] == 0,
+              greedy["exact"]["launches"] > 0]
+    if not all(checks):
+        raise RuntimeError(f"gain_quant phase failed its checks: {checks}")
+    return dict(name="_lb_gains_tiles",
+                replaces="src/repro/kernels/knn/gains.py:170",
+                shape=dict(R=cat.n, O=cat.n, D=cat.dim, I=1, J=3),
+                ms=times["quantized_ms"],
+                exact_path="placement_gains (C), R = O = 20,000",
+                exact_ms=times["exact_ms"])
+
+
 HITRATE_REQUESTS = 40_000
 SURROGATE_OBJECTS = (100_000, 1_000_000)
 SURROGATE_CALLS = 5
@@ -1898,14 +2305,15 @@ def surrogate_breakdown(torch, net, lam) -> dict:
 def phase_hitrate(torch):
     """The Che plane on the card: the reference's full-scale network
     (scale-free, 41 caches, 4,096 slots, 6 ingresses) on the stream's
-    catalog rescaled as the reference bench rescales it (cut from 10⁶
-    objects: the LSH enumeration is not ported), exact balls for SIM-LRU
-    and RND-LRU, the fixed point of each against a ``StrategyPlane``
+    catalog rescaled as the reference bench rescales it, exact balls for
+    SIM-LRU and RND-LRU, the fixed point of each against a
+    ``StrategyPlane``
     replay of 40,000 Zipf(0.9) requests measured as the bench measures
     it (the warm half); then the engine surrogate's time a call on the
     engine's three-level hierarchy at 10⁵ and 10⁶ objects with exact-hit
     balls. The balls are also held against the CPU's on a 2,000-object
-    slice of the catalog."""
+    slice of the catalog. Then the reference bench's 10⁶-object path
+    (:func:`hitrate_full_scale`)."""
     from repro_torch.core import demand as demand_api
     from repro_torch.core import scenarios, topology
     from repro_torch.core.analysis import (predict_hitrates,
@@ -1972,20 +2380,148 @@ def phase_hitrate(torch):
         surrogate[str(n)] = dict(median_ms=float(np.median(ms)), ms=ms,
                                  cost=vals.pop(), repeats_bitwise=not vals,
                                  **surrogate_breakdown(torch, hier, lam))
+    full, cand_ca = hitrate_full_scale(torch, net)
     res = dict(net=net.name, caches=net.n_caches, slots=net.total_slots,
                ingress=net.n_ingress, catalog=len(coords),
                dim=coords.shape[1], cut_from=1_000_000, theta=theta,
                demand="zipf0.9", requests=HITRATE_REQUESTS,
-               strategies=rows, balls_hold=balls_hold, surrogate=surrogate)
+               strategies=rows, balls_hold=balls_hold, surrogate=surrogate,
+               full_1e6_lsh=full)
     log("hitrate", **res)
     checks = [all(r["finite"] and 0.0 < r["predicted_hit_rate"] < 1.0
                   for r in rows.values()),
               all(r["mean_ball"] > 1.0 for r in rows.values()),
               balls_hold["idx_equal"], balls_hold["q_equal"],
               balls_hold["dist_max_rel"] <= 2.0 ** -23,
-              all(s["repeats_bitwise"] for s in surrogate.values())]
+              all(s["repeats_bitwise"] for s in surrogate.values()),
+              full["check"], full["lsh_within_exact"]["ok"],
+              full["lsh_card_vs_cpu"]["ok"]]
     if not all(checks):
         raise RuntimeError(f"hitrate phase failed its checks: {checks}")
+    return cand_ca
+
+
+NEAR_THETA = 1e-5     # a pair within this of θ (relative) may flip
+
+
+def _ca64(coords, o, members):
+    diff = coords[members].astype(np.float64) - coords[o].astype(np.float64)
+    return np.sqrt((diff ** 2).sum(-1))
+
+
+def lsh_balls_hold(b, ref, coords) -> dict:
+    """LSH balls ``b`` against ``ref`` (the same enumeration elsewhere):
+    every row's members equal, except on rows holding a pair within
+    ``NEAR_THETA``·θ of θ, where the member sets may differ by such
+    pairs alone; distances to 1e-5 relative on the equal rows."""
+    n, theta = b.n_objects, b.theta
+    near, bad = [], []
+    for o in np.nonzero((b.idx != ref.idx).any(axis=1))[0]:
+        mi, mj = b.idx[o][b.idx[o] < n], ref.idx[o][ref.idx[o] < n]
+        diff = np.setxor1d(mi, mj)
+        band = np.abs(_ca64(coords, o, diff) - theta) <= NEAR_THETA * theta
+        (near if diff.size and band.all() else bad).append(int(o))
+    rows = np.setdiff1d(np.arange(n), near + bad)
+    rel = float(np.max(np.abs(b.dist[rows] - ref.dist[rows])
+                       / np.maximum(ref.dist[rows], 1e-30), initial=0.0))
+    return dict(objects=n, near_theta_rows=near, bad_rows=bad[:10],
+                dist_max_rel=rel, ok=not bad and rel <= 1e-5)
+
+
+def hitrate_full_scale(torch, net) -> tuple[dict, dict]:
+    """The reference bench's 10⁶-object path (``bench_full_scale``):
+    ``embedding_catalog(n=10⁶, dim=8, seed=0)`` rescaled by its rule,
+    Zipf(0.9), ``similarity_balls(mode="lsh", seed=0, max_ball=64)`` —
+    its time split into the table build (host), the candidates, exact
+    filter and packing on the card, and the host's share, and the balls'
+    sizes before the cut to ``max_ball`` — then
+    ``predict_hitrates(n_sweeps=8)``; the bench's check; LSH ⊆ exact on a
+    20,000-object slice (every member within θ, self present); and the
+    card's LSH balls against the CPU's on a 2,000-object slice."""
+    from repro_torch.core import demand as demand_api
+    from repro_torch.core.analysis import (hitrate, predict_hitrates,
+                                           similarity_balls)
+    from repro_torch.kernels.knn import lsh
+    coords, theta, cat0 = rescaled_catalog(net, n=1_000_000, dim=8, seed=0)
+    dem = demand_api.zipf(cat0, alpha=0.9, n_ingress=net.n_ingress, seed=7)
+    parts = [("build_s", lsh.SimHashPolicy, "build"),
+             ("card_s", lsh, "candidate_matrix"),
+             ("card_s", hitrate, "_lsh_block"),
+             ("cand_ca_s", hitrate, "_cand_ca")]   # inside _lsh_block
+
+    def first_args(a, kw, out):            # one block's real inputs
+        return None if cap.calls["cand_ca"] else a
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with timed_parts(torch, parts) as split, captured(
+            [("sizes", hitrate, "_lsh_block", lambda a, kw, out: out[2]),
+             ("cand_ca", hitrate, "_cand_ca", first_args)]) as cap:
+        balls = similarity_balls(coords, theta, mode="lsh", seed=0,
+                                 max_ball=64)
+    balls_s = time.perf_counter() - t
+    split = {k: v / 1e3 for k, v in split.ms.items()}
+    split["host_s"] = balls_s - split["build_s"] - split["card_s"]
+    n_blocks = -(-len(coords) // 1024)
+    # each ball's size before the cut to max_ball
+    sz = torch.cat(cap.calls["sizes"]).double()
+    members = float(sz.sum())
+    before_cap = dict(
+        mean=members / sz.numel(), max=float(sz.max()),
+        **{f"p{p}": float(torch.quantile(sz, p / 100))
+           for p in (50, 90, 99)},
+        share_of_objects_over_cap=float((sz > 64).double().mean()),
+        members=members, truncated_share=int(balls.truncated) / members)
+    t = time.perf_counter()
+    pred = predict_hitrates(net, dem.lam, balls, n_sweeps=8)
+    solve_s = time.perf_counter() - t
+    row = dict(objects=len(coords), dim=coords.shape[1], theta=theta,
+               mean_ball=balls.mean_size, truncated=int(balls.truncated),
+               ball_sizes_before_cap=before_cap, balls_s=balls_s, balls_split=split, solve_s=solve_s,
+               predicted_hit_rate=pred.hit_rate,
+               predicted_mean_cost=pred.mean_cost, residual=pred.residual,
+               check=bool(np.isfinite(pred.hit_rate)
+                          and 0.0 <= pred.hit_rate <= 1.0
+                          and balls.mean_size >= 1.0))
+    del balls, pred
+    # LSH within the exact balls on a 20,000-object slice
+    part = coords[:20_000]
+    lb = similarity_balls(part, theta, mode="lsh", seed=0)
+    eb = similarity_balls(part, theta, mode="exact")
+    n, bad, outside = part.shape[0], 0, 0
+    for o in range(n):
+        li = lb.idx[o][lb.idx[o] < n]
+        extra = np.setdiff1d(li, eb.idx[o][eb.idx[o] < n])
+        if extra.size and not np.all(np.abs(_ca64(part, o, extra) - theta)
+                                     <= NEAR_THETA * theta):
+            bad += 1
+        outside += int(extra.size)
+        bad += int(li[0] != o)
+    row["lsh_within_exact"] = dict(
+        objects=n, lsh_mean_ball=lb.mean_size, exact_mean_ball=eb.mean_size,
+        members_past_theta_within_band=outside, bad_rows=bad,
+        max_dist_over_theta=float(lb.dist.max() / theta), ok=bad == 0
+        and float(lb.dist.max()) <= theta * (1 + NEAR_THETA))
+    small = coords[:2000]
+    row["lsh_card_vs_cpu"] = lsh_balls_hold(
+        similarity_balls(small, theta, mode="lsh", seed=0),
+        similarity_balls(small, theta, mode="lsh", seed=0, device="cpu"),
+        small)
+    # _cand_ca on the 10⁶ enumeration's first block, beside the exact
+    # enumeration's f64 block over the whole catalog
+    qs, cs, metric, gamma = cap.calls["cand_ca"][0]
+    cand_ms = cuda_ms(torch, lambda: hitrate._cand_ca(qs, cs, metric, gamma),
+                      5)
+    c64 = torch.as_tensor(coords, device="cuda").double()
+    exact_ms = cuda_ms(torch, lambda: hitrate._block_ca(c64[:1024], c64,
+                                                        "l2", 1.0), 3)
+    del c64
+    return row, dict(name="_cand_ca",
+                     replaces="src/repro/core/analysis/hitrate.py:203",
+                     shape=dict(B=cs.shape[0], P=cs.shape[1], D=cs.shape[2]),
+                     ms=cand_ms,
+                     host_ms_per_block=split["cand_ca_s"] * 1e3 / n_blocks,
+                     exact_path="_block_ca (f64), 1,024 × 10⁶",
+                     exact_ms=exact_ms)
 
 
 GATE_MIN_GAIN = 100.0        # 10 % of h_model 1000
@@ -2206,7 +2742,9 @@ def main() -> int:
         demand_api.zipf(scat, alpha=1.0, n_ingress=4, seed=1).lam)
     e = phase_kernel_e(torch, clock_hz)
     phase_stable(torch, cat.coords)
-    phase_bigcache(torch, cat, dem)
+    big = phase_bigcache(torch, cat, dem)
+    compress = phase_compress(torch, big)
+    del big
     f = phase_duel(torch, cat, dem, clock_hz)
     counts, params, cascade = phase_engine(torch, cat, dem)
     warm_counts = phase_warmstart(torch, cat, dem, params, cascade)
@@ -2218,7 +2756,8 @@ def main() -> int:
     stream_counts = phase_stream(torch, params)
     duel_counts = phase_duel_engine(torch, params)
     scenario_counts = phase_scenario(torch, params)
-    phase_hitrate(torch)
+    lb_gains = phase_gain_quant(torch)
+    cand_ca = phase_hitrate(torch)
     gate_counts = phase_gate(torch, params)
     del params
     gc.collect()
@@ -2253,8 +2792,9 @@ def main() -> int:
             launches=counts[r["name"]], **{k: r[k] for k in timed}))
         if "device_ms" in r:
             kernels[-1]["device_ms"] = r["device_ms"]
-        if r["name"] == "fused_lookup":          # the warm start's path
+        if r["name"] == "fused_lookup":  # the warm start's, item 10's
             kernels[-1]["launches_warmstart"] = warm_counts["fused_lookup"]
+            kernels[-1]["launches_compress"] = compress["launches"]
         if r["name"] == "placement_gains":       # GREEDY on the scenario
             kernels[-1]["launches_scenario"] = scenario_counts["greedy"]
         if r["name"] == "flash_attention":       # the strategy engines
@@ -2274,7 +2814,11 @@ def main() -> int:
                                   "device_ms", "bound_ms")})
         for g in groups if g["kernel"] == "C"]
     kernels[5]["device_ms"] = f["kernel_device_ms"]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # item 10's torch paths (XLA in the reference, no Pallas kernel), each
+    # beside the exact path it sits in front of
+    xla_paths = compress["xla"] + [lb_gains, cand_ca]
+    print(json.dumps({"kernels": kernels, "xla_paths": xla_paths}),
+          flush=True)
     log("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -49,10 +49,15 @@ How the port splits the work:
   exactly 0, are left out of it;
 * :func:`similarity_balls` enumerates balls exactly, by direct f64
   differences on ``device`` (not the Gram form: a self-distance must be
-  exactly 0), up to 20,000 objects. The LSH enumeration
-  (``mode="lsh"``, and ``mode="auto"`` past 20,000 objects) comes with
-  the pruned data plane, ROADMAP queue 1 item 10, and raises
-  ``NotImplementedError`` until then.
+  exactly 0), up to 20,000 objects. Past that (``mode="auto"``), or with
+  ``mode="lsh"``, it enumerates by SimHash candidates
+  (kernels/knn/lsh.py: tables built on the host, the candidate matrix on
+  ``device``) and filters them by exact f32 C_a (:func:`_cand_ca`), as
+  the reference does. The reference's per-object host loop (dedupe,
+  self first, then :func:`_pack_rows`) becomes a few sorts of each block
+  on the device (:func:`_lsh_block`), whose output is the loop's: only
+  the packed rows come back to the host, which is what makes 10⁶
+  objects practical.
 
 torch's ``expm1``, ``log1p`` and ``exp`` and its sum orders are not
 XLA's, and the bisection amplifies an ulp into T, so T, π and the
@@ -79,8 +84,7 @@ __all__ = ["SimilarityBalls", "HitRatePrediction", "similarity_balls",
            "exact_hit_balls", "solve_characteristic_time",
            "predict_hitrates", "surrogate_cost", "rescaled_coords"]
 
-# the exact enumeration's ceiling: above it the reference enumerates by
-# LSH, which is not ported yet
+# the exact enumeration's ceiling: above it mode="auto" enumerates by LSH
 EXACT_MAX_OBJECTS = 20_000
 
 
@@ -189,6 +193,109 @@ def _block_ca(x: torch.Tensor, y: torch.Tensor, metric: str,
     return out
 
 
+def _cand_ca(qs: torch.Tensor, cs: torch.Tensor, metric: str,
+             gamma: float) -> torch.Tensor:
+    """(B, P) exact C_a in f32 between query rows (B, D) and their
+    gathered candidate rows (B, P, D): the LSH path's exact filter."""
+    diff = cs - qs[:, None, :]
+    if metric == "l1":
+        d = diff.abs().sum(dim=-1)
+    else:
+        d2 = (diff * diff).sum(dim=-1)
+        d = d2 if metric == "l2sq" else d2.sqrt()
+    return d if gamma == 1.0 else d ** gamma
+
+
+def _lsh_block(cj: torch.Tensor, s: int, cand: torch.Tensor, theta: float,
+               metric: str, gamma: float, width: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The balls of objects s … s + B − 1 from their (B, P) candidate rows
+    (−1-padded), on the candidates' device: (idx (B, w) int64 padded with
+    n, dist (B, w) f32 padded with 0, sizes (B,)), w ≤ ``width``.
+
+    The reference's per-object loop, as sorts of the whole block: keep
+    the candidates with C_a ≤ θ, keep each one's first occurrence in
+    ascending object order (``np.unique``), zero the self distance or,
+    where self is no candidate, put self first; then order each row by
+    C_a, stably (``_pack_rows``), and cut it to ``width``."""
+    n = cj.shape[0]
+    B, dev = cand.shape[0], cand.device
+    cand = cand.long()
+    ca = _cand_ca(cj[s:s + B], cj[cand.clamp_min(0)], metric, gamma)
+    ca = torch.where(cand >= 0, ca, torch.full_like(ca, torch.inf))
+    keep = ca <= theta
+    obj = torch.arange(s, s + B, device=dev)[:, None]
+    is_self = cand == obj
+    present = (keep & is_self).any(dim=1, keepdim=True)
+    # sort key: object + 1 for a member, n + 2 for none; a self that is
+    # no candidate gets key 0 (first in its row), a self that is one
+    # duplicates its own key and is dropped as a repeat
+    key = torch.cat([torch.where(keep, cand + 1, torch.full_like(cand,
+                                                                 n + 2)),
+                     torch.where(present, obj + 1, torch.zeros_like(obj))],
+                    dim=1)
+    dist = torch.cat([torch.where(is_self, torch.zeros_like(ca), ca),
+                      ca.new_zeros((B, 1))], dim=1)
+    srt = torch.sort(key, dim=1, stable=True)
+    k, d = srt.values, dist.gather(1, srt.indices)
+    first = k < n + 2
+    first[:, 1:] &= k[:, 1:] != k[:, :-1]
+    sizes = first.sum(dim=1)
+    member = torch.where(k == 0, obj, k - 1)
+    by_d = torch.sort(torch.where(first, d, torch.full_like(d, torch.inf)),
+                      dim=1, stable=True)
+    w = max(1, min(width, int(sizes.max())))
+    idx = member.gather(1, by_d.indices[:, :w])
+    dv = by_d.values[:, :w]
+    pad = torch.arange(w, device=dev)[None, :] >= sizes[:, None]
+    return (torch.where(pad, torch.full_like(idx, n), idx),
+            torch.where(pad, torch.zeros_like(dv), dv), sizes)
+
+
+def _lsh_balls(coords: np.ndarray, theta: float, metric: str, gamma: float,
+               q_mode: str, policy, block: int, max_ball: int | None,
+               seed: int, dev: torch.device) -> SimilarityBalls:
+    """``similarity_balls(mode="lsh")``: SimHash tables over the catalog
+    (host), each block's candidate matrix, exact filter and packing on
+    ``dev`` (:func:`_lsh_block`); the same structure as the reference's
+    ``_pack_rows`` over its per-object lists."""
+    from repro_torch.kernels.knn import lsh as lsh_api
+    n = coords.shape[0]
+    if policy is None:
+        policy = lsh_api.SimHashPolicy(seed=seed)
+    tables = policy.build(coords, np.ones(n, bool))
+    proj = torch.as_tensor(tables.proj, device=dev)
+    buckets = torch.as_tensor(tables.buckets, device=dev)
+    cj = torch.as_tensor(coords, device=dev)
+    width = n + 1 if max_ball is None else max_ball
+    parts, sizes = [], []
+    for s in range(0, n, block):
+        cand = lsh_api.candidate_matrix(tables.kind, proj, buckets,
+                                        cj[s:s + block], tables.n_probes)
+        idx, dist, sz = _lsh_block(cj, s, cand, theta, metric, gamma, width)
+        parts.append((idx.cpu().numpy(), dist.cpu().numpy()))
+        sizes.append(sz.cpu().numpy())
+    sizes = np.concatenate(sizes)
+    m = int(sizes.max()) if n else 1
+    truncated = 0
+    if max_ball is not None and m > max_ball:
+        truncated = int(np.maximum(sizes - max_ball, 0).sum())
+        m = max_ball
+    m = max(m, 1)
+    idx = np.full((n, m), n, np.int32)
+    dist = np.zeros((n, m), np.float32)
+    s = 0
+    for pi, pd in parts:
+        w = min(m, pi.shape[1])
+        idx[s:s + pi.shape[0], :w] = pi[:, :w]
+        dist[s:s + pi.shape[0], :w] = pd[:, :w]
+        s += pi.shape[0]
+    q = _q_weights(dist, theta, q_mode)
+    q[idx >= n] = 0.0
+    return SimilarityBalls(idx=idx, q=q, dist=dist, n_objects=n,
+                           theta=float(theta), truncated=truncated)
+
+
 def similarity_balls(coords: np.ndarray, theta: float, metric: str = "l2",
                      gamma: float = 1.0, q_mode: str = "hard",
                      mode: str = "auto", policy=None, block: int = 1024,
@@ -200,10 +307,12 @@ def similarity_balls(coords: np.ndarray, theta: float, metric: str = "l2",
     ``mode='exact'`` runs a blocked O×O f64 distance pass on ``device``
     and keeps, per object, its members in ascending object order (the
     reference's ``np.nonzero``) before :func:`_pack_rows` sorts them by
-    C_a. ``mode='auto'`` is exact up to 20,000 objects. The LSH mode
-    (``mode='lsh'``, ``mode='auto'`` above 20,000 objects; ``policy``
-    and ``seed`` are its arguments) raises ``NotImplementedError``
-    until ROADMAP queue 1 item 10. ``q_mode`` sets the stored weights:
+    C_a. ``mode='lsh'`` routes each block of ``block`` objects through a
+    SimHash candidate matrix (``policy``, default
+    ``SimHashPolicy(seed=seed)``) and filters the candidates by exact
+    f32 C_a, on ``device`` (:func:`_lsh_balls`): sublinear per object,
+    the 10⁶-object path. ``mode='auto'`` is exact up to 20,000 objects
+    and LSH above. ``q_mode`` sets the stored weights:
     'hard' (SIM-LRU indicator) or 'rnd' (RND-LRU 1 − C_a/θ). θ ≤ 0
     degenerates to exact-hit balls.
     """
@@ -213,15 +322,13 @@ def similarity_balls(coords: np.ndarray, theta: float, metric: str = "l2",
         return exact_hit_balls(n)
     if mode == "auto":
         mode = "exact" if n <= EXACT_MAX_OBJECTS else "lsh"
-    if mode == "lsh":
-        raise NotImplementedError(
-            "similarity_balls(mode='lsh') (the LSH candidate enumeration, "
-            f"and mode='auto' above {EXACT_MAX_OBJECTS} objects) is not "
-            "ported yet: ROADMAP queue 1 item 10")
-    if mode != "exact":
+    if mode not in ("exact", "lsh"):
         raise ValueError(f"unknown mode {mode!r} "
                          "(expected 'exact'|'lsh'|'auto')")
     dev = resolve_device(device)
+    if mode == "lsh":
+        return _lsh_balls(coords, theta, metric, gamma, q_mode, policy,
+                          block, max_ball, seed, dev)
     cj = torch.as_tensor(coords, device=dev).double()
     rows_idx: list = [None] * n
     rows_d: list = [None] * n

@@ -430,14 +430,21 @@ class DeviceInstance:
         return self.h_repo[:, None].expand(
             self.lam.shape[0], self.n_objects).clone()
 
-    def gains(self, cur: torch.Tensor) -> torch.Tensor:
-        """(O, J) marginal gains of every candidate — one oracle launch."""
+    def gains(self, cur: torch.Tensor,
+              quantize: bool = False) -> torch.Tensor:
+        """(O, J) marginal gains of every candidate — one oracle launch.
+        With ``quantize`` the oracle runs the int8 lower-bound distance
+        pass and returns admissible *upper* bounds on every gain: valid
+        lazy priorities, not exact values (``device_greedy`` re-scores
+        before it accepts)."""
         from repro_torch.kernels.knn import (placement_gains,
                                              placement_gains_matrix)
         if self.ca is not None:
-            return placement_gains_matrix(self.ca, self.lam, cur, self.H)
+            return placement_gains_matrix(self.ca, self.lam, cur, self.H,
+                                          quantize=quantize)
         return placement_gains(self.coords, self.coords, self.lam, cur,
-                               self.H, metric=self.metric, gamma=self.gamma)
+                               self.H, metric=self.metric, gamma=self.gamma,
+                               quantize=quantize)
 
     def gain_at(self, cur, objs, caches) -> torch.Tensor:
         coords, ca, metric, gamma, has_ca = self._ca_args()

@@ -10,8 +10,9 @@ matrix, the swap deltas) on the card, over a
 :class:`repro_torch.core.objective.DeviceInstance`.
 
 * :func:`device_greedy` — batched lazy greedy. One full oracle launch
-  (``DeviceInstance.gains``: kernel C when C_a streams) seeds an
-  upper-bound table; each step re-evaluates the k highest stale entries
+  (``DeviceInstance.gains``: kernel C when C_a streams, or with
+  ``quantize`` the int8 lower-bound pass, whose seeds start stale) seeds
+  an upper-bound table; each step re-evaluates the k highest stale entries
   in one batched ``gain_at`` until the argmax entry is fresh.
   ``torch.argmax`` keeps the first maximum, and the stale set is taken
   by a stable descending sort — ties at the k-th boundary go to the
@@ -122,19 +123,28 @@ def _greedy_device_loop(dinst, cur, ub, fresh, col_open, n_slots: int,
 
 
 def device_greedy(dinst: DeviceInstance, topk: int = DEFAULT_TOPK,
-                  gain_tol: float = GAIN_TOL,
-                  scan: bool = True) -> np.ndarray:
+                  gain_tol: float = GAIN_TOL, scan: bool = True,
+                  quantize: bool = False) -> np.ndarray:
     """Batched lazy GREEDY on the device gain oracle; returns the same
     allocation vector as ``greedy(inst)`` (slots left at −1 when no
-    candidate has gain above ``gain_tol``)."""
+    candidate has gain above ``gain_tol``).
+
+    ``quantize=True`` seeds the upper-bound table from the int8
+    lower-bound oracle instead of the exact one. Quantized gains are
+    admissible upper bounds, so they enter the lazy loop marked stale:
+    every accepted candidate is still re-scored exactly before it is
+    accepted, which keeps the allocation bit-identical to the
+    exact-seeded run."""
     O, J = dinst.n_objects, dinst.n_caches
     K = int(dinst.host.net.total_slots)
     slot_cache = dinst.host.slot_cache
     free = {j: list(np.where(slot_cache == j)[0][::-1]) for j in range(J)}
 
     cur = dinst.initial_costs()
-    ub = dinst.gains(cur).float().reshape(-1)          # flat o·J + j
-    fresh = torch.ones((O * J,), dtype=torch.bool, device=dinst.device)
+    ub = dinst.gains(cur, quantize=quantize).float().reshape(-1)  # o·J + j
+    # exact seeds are fresh; quantized seeds are stale upper bounds
+    fresh = torch.full((O * J,), not quantize, dtype=torch.bool,
+                       device=dinst.device)
     col_open = torch.tensor([bool(free[j]) for j in range(J)],
                             device=dinst.device)
     k = min(topk, O * J)

@@ -14,8 +14,20 @@ rides along as a virtual key). ``fused=False`` keeps the per-level probe
 (one launch of kernel B per level, minima compared centrally) as the
 differential twin; the two serve identical traffic.
 
-Sharded, pruned, quantized and verified lookups are later slices of the
-port (ROADMAP queue 1, items 10 and 11).
+``lookup(prune="lsh"|"kmeans")`` puts a candidate pre-filter
+(kernels/knn/lsh.py) in front of the fused scan: the batch is hashed
+against memoized SimHash / k-means tables, the batch union of candidate
+rows is gathered, and kernel A runs over only those rows.
+``lookup(quantize=True)`` scores every key (or every gathered row, with
+``prune``) by a certified int8 lower bound and rescores each query's
+``top_t`` best through kernel A. ``verify=True`` re-scans every query
+whose cost reaches the returned bound through the exact fused path, which
+makes the result bit-identical to the exact lookup by construction; the
+network counts those re-scans (``rescan_calls``, ``rescan_queries``).
+Tables and the int8 image are memoized next to the layout; unlike the
+plain fused path, a pruned or quantized lookup against mutated but not
+invalidated ``levels`` raises. The sharded lookup is a later slice of the
+port (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -26,7 +38,11 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.kernels.knn import fused_lookup, nearest_approximizer
+from repro_torch.kernels import quant
+from repro_torch.kernels.knn import (DEFAULT_TOP_T, default_policy,
+                                     fused_lookup, nearest_approximizer,
+                                     pruned_fused_lookup,
+                                     quantized_fused_lookup)
 
 REPO_LEVEL = -1
 
@@ -62,17 +78,29 @@ class SimCacheNetwork:
     metric: str = "l2"
     gamma: float = 1.0
     fused: bool = True
+    # CandidatePolicy override, used only when its ``kind`` matches the
+    # ``prune=`` argument of lookup(); other kinds fall back to
+    # kernels.knn.lsh.default_policy
+    candidate_policy: object | None = None
     _layout: tuple | None = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
     _layout_fp: tuple | None = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    _tables: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+    # verify=True's exact re-scans: launches of the exact path, queries
+    rescan_calls: int = dataclasses.field(default=0, init=False,
+                                          compare=False)
+    rescan_queries: int = dataclasses.field(default=0, init=False,
+                                            compare=False)
 
     @classmethod
     def from_placement(cls, coords: np.ndarray, slots: np.ndarray,
                        slot_cache: np.ndarray, hs: Sequence[float],
                        h_repo: float, metric: str = "l2",
                        gamma: float = 1.0, fused: bool = True,
-                       device: str | torch.device | None = None
+                       device: str | torch.device | None = None,
+                       candidate_policy: object | None = None
                        ) -> "SimCacheNetwork":
         """Build the runtime network from a placement-algorithm output on
         ``device`` (CUDA unless named). ``slots``/``slot_cache`` are the
@@ -94,7 +122,8 @@ class SimCacheNetwork:
                                                             device=dev),
                                      h=float(h)))
         return cls(levels=levels, h_repo=float(h_repo), metric=metric,
-                   gamma=gamma, fused=fused)
+                   gamma=gamma, fused=fused,
+                   candidate_policy=candidate_policy)
 
     # ------------------------------------------------------- fused layout
     def fused_layout(self) -> tuple[torch.Tensor, torch.Tensor,
@@ -134,9 +163,11 @@ class SimCacheNetwork:
         return self._layout
 
     def invalidate_layout(self) -> None:
-        """Drop the memoized fused layout after mutating ``levels``."""
+        """Drop the memoized fused layout (and the candidate tables and
+        int8 image built from it) after mutating ``levels``."""
         self._layout = None
         self._layout_fp = None
+        self._tables = {}
 
     def _levels_fingerprint(self) -> tuple:
         """Identity of the current ``levels`` content: the tensor objects
@@ -153,20 +184,71 @@ class SimCacheNetwork:
             for (ak, av, ah), (bk, bv, bh) in zip(a, b))
 
     def _check_layout_fresh(self) -> None:
-        """Raise when the memoized layout no longer matches ``levels``
-        (the guard the reference's pruned lookups run before indexing
-        candidate tables into the layout)."""
+        """Raise when the memoized layout no longer matches ``levels``:
+        the pruned and quantized lookups run it before indexing tables
+        built from the layout."""
         if self._layout is not None and not self._fingerprints_match(
                 self._layout_fp, self._levels_fingerprint()):
             raise RuntimeError(
-                "stale layout: `levels` were mutated after the fused "
-                "layout was built — call invalidate_layout() first")
+                "stale candidate tables: `levels` were mutated after the "
+                "fused layout (and the LSH/k-means tables indexing it) "
+                "were built — call invalidate_layout() before a pruned "
+                "lookup. The un-pruned paths serve the stale layout "
+                "verbatim; pruning refuses, rather than returning "
+                "candidates into a layout that no longer exists.")
+
+    # -------------------------------------------------- candidate tables
+    def _resolve_policy(self, prune: str):
+        pol = self.candidate_policy
+        if pol is not None and getattr(pol, "kind", None) == prune:
+            return pol
+        return default_policy(prune)
+
+    def _tables_for(self, policy) -> tuple[torch.Tensor, torch.Tensor,
+                                           int]:
+        """Memoized (proj, buckets, n_probes) of one policy, built on the
+        host over the fused layout and moved to its device; dropped by
+        :meth:`invalidate_layout`."""
+        memo_key = (policy, 0)            # 0: the unsharded layout
+        if memo_key not in self._tables:
+            keys, _, meta = self.fused_layout()
+            t = policy.build(keys.cpu().numpy(),
+                             meta[3].cpu().numpy() > 0)
+            self._tables[memo_key] = (
+                torch.as_tensor(t.proj, device=keys.device),
+                torch.as_tensor(t.buckets, device=keys.device), t.n_probes)
+        return self._tables[memo_key]
+
+    def _quant_rows(self) -> quant.QuantizedRows:
+        """Memoized int8 image (quant.QuantizedRows) of the fused key
+        rows, dropped with the layout by :meth:`invalidate_layout`."""
+        memo_key = ("quant_rows", 0)
+        if memo_key not in self._tables:
+            self._tables[memo_key] = quant.quantize_rows(
+                self.fused_layout()[0], self.metric)
+        return self._tables[memo_key]
 
     # ------------------------------------------------------------ lookup
-    def lookup(self, queries: torch.Tensor) -> LookupResult:
-        """Serve a batch of query embeddings (B, d) per eq. (1): one
-        fused kernel launch (default) or one KNN launch per level
-        (``fused=False``)."""
+    def lookup(self, queries: torch.Tensor, prune: str | None = None,
+               verify: bool = False, quantize: bool = False,
+               top_t: int | None = None) -> LookupResult:
+        """Serve a batch of query embeddings (B, d) per eq. (1).
+
+        Fused (default): one launch of kernel A over every level's keys.
+        Looped (``fused=False``): one launch of kernel B per level and a
+        central argmin, the differential twin.
+        Pruned (``prune="lsh"|"kmeans"``): the candidate pre-filter in
+        front of the fused scan. Quantized (``quantize=True``): the int8
+        lower-bound first pass keeps ``top_t`` candidates per query (64
+        by default) for the exact rescore; it composes with ``prune``
+        (LSH gather first, quantized cut second). With ``verify=True``
+        either is bit-identical to the exact fused lookup.
+        """
+        if prune is not None:
+            return self._lookup_pruned(queries, prune, verify,
+                                       quantize=quantize, top_t=top_t)
+        if quantize:
+            return self._lookup_quantized(queries, verify, top_t)
         if self.fused:
             return self._lookup_fused(queries)
         return self._lookup_looped(queries)
@@ -178,6 +260,79 @@ class SimCacheNetwork:
             gamma=self.gamma, h_repo=self.h_repo, repo_level=REPO_LEVEL)
         return LookupResult(level=lvl, slot=slot, payload=pay, cost=cost,
                             approx_cost=ca, hit=lvl != REPO_LEVEL)
+
+    def _lookup_quantized(self, queries: torch.Tensor, verify: bool,
+                          top_t: int | None) -> LookupResult:
+        self._check_layout_fresh()
+        keys, h_key, meta = self.fused_layout()
+        if keys.shape[0] == 0:                     # no keys → repository
+            return self._lookup_fused(queries)
+        tt = DEFAULT_TOP_T if top_t is None else int(top_t)
+        out = quantized_fused_lookup(
+            queries, keys, h_key, meta, self._quant_rows(), top_t=tt,
+            metric=self.metric, gamma=self.gamma, h_repo=self.h_repo,
+            repo_level=REPO_LEVEL)
+        return self._result(queries, out, verify)
+
+    def _lookup_pruned(self, queries: torch.Tensor, prune: str,
+                       verify: bool, quantize: bool = False,
+                       top_t: int | None = None) -> LookupResult:
+        policy = self._resolve_policy(prune)
+        self._check_layout_fresh()
+        keys, h_key, meta = self.fused_layout()
+        if keys.shape[0] == 0:                     # no keys → repository
+            return self._lookup_fused(queries)
+        tt = DEFAULT_TOP_T if top_t is None else int(top_t)
+        proj, buckets, n_probes = self._tables_for(policy)
+        out = pruned_fused_lookup(
+            queries, keys, h_key, meta, proj, buckets, kind=policy.kind,
+            n_probes=n_probes, cap_union=policy.resolve_cap(keys.shape[0]),
+            metric=self.metric, gamma=self.gamma, h_repo=self.h_repo,
+            repo_level=REPO_LEVEL, quantize=quantize, top_t=tt)
+        return self._result(queries, out, verify)
+
+    def _result(self, queries: torch.Tensor, out: tuple,
+                verify: bool) -> LookupResult:
+        cost, ca, lvl, slot, pay, bound = out
+        res = LookupResult(level=lvl, slot=slot, payload=pay, cost=cost,
+                           approx_cost=ca, hit=lvl != REPO_LEVEL)
+        if not verify:
+            return res
+        return self._verify_rescan(queries, res, bound)
+
+    def _verify_rescan(self, queries: torch.Tensor, res: LookupResult,
+                       bound: torch.Tensor) -> LookupResult:
+        """The verifier: ``cost < bound`` proves a pruned or quantized
+        winner exact (every un-scanned valid key costs ≥ bound); every
+        other query, exact ties included (their break could prefer an
+        un-scanned lower index), re-scans through the exact fused path.
+        Only the flagged queries re-scan (a kernel row depends on its own
+        query alone, so a sub-batch gives the full batch's rows), padded
+        with query 0 to a power of two so that repeated calls see few
+        shapes. ``bound`` is a scalar for the LSH path and (B,) for the
+        quantized cut; the compare broadcasts either."""
+        idx = torch.nonzero(res.cost >= bound).reshape(-1)
+        n = int(idx.numel())
+        if n == 0:
+            return res
+        m = 1
+        while m < n:
+            m <<= 1
+        m = min(m, queries.shape[0])
+        pad_idx = torch.cat([idx, idx.new_zeros((m - n,))])
+        exact = self._lookup_fused(queries[pad_idx])
+        self.rescan_calls += 1
+        self.rescan_queries += n
+
+        def put(dst, src):
+            return dst.index_put((idx,), src[:n])
+        lvl = put(res.level, exact.level)
+        return LookupResult(
+            level=lvl, slot=put(res.slot, exact.slot),
+            payload=put(res.payload, exact.payload),
+            cost=put(res.cost, exact.cost),
+            approx_cost=put(res.approx_cost, exact.approx_cost),
+            hit=lvl != REPO_LEVEL)
 
     def _lookup_looped(self, queries: torch.Tensor) -> LookupResult:
         B, dev = queries.shape[0], queries.device

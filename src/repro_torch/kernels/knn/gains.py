@@ -24,9 +24,13 @@ current per-(ingress, object) serving cost C(r, A). Counterpart of
   it. For CPU tensors it runs the plain version, :func:`_gains_tiles`.
   ``gains_cuda.launches`` counts kernel launches.
 * :func:`placement_gains` — the public entry (sentinel mapping and the
-  (J, O) → (O, J) transpose), behind every GREEDY seed.
+  (J, O) → (O, J) transpose), behind every GREEDY seed. With
+  ``quantize=True`` it runs :func:`_lb_gains_tiles` instead, torch over
+  the int8 images (the reference's is XLA, not Pallas): certified gain
+  *upper* bounds, which lazy GREEDY takes as stale seeds.
 * :func:`placement_gains_matrix` — plain torch over an explicit C_a
-  matrix, for instances that materialize it.
+  matrix, for instances that materialize it (``quantize=True`` bounds
+  each C_a row from below by its int8 image).
 
 Off-path +inf entries of H map to the finite ``H_SENTINEL`` (relu clamps
 them to zero gain; inf − inf would breed NaNs).
@@ -38,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import quant
 from repro_torch.kernels.build import LIBRARY, check, stream_ptr
 from repro_torch.kernels.knn.knn import _contig_f32, _metric_id
 from repro_torch.kernels.knn.ref import _dense_ca
@@ -216,25 +221,67 @@ def _sentinel(hreq: torch.Tensor) -> torch.Tensor:
                        torch.full_like(hreq, H_SENTINEL))
 
 
+def _lb_gains_tiles(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
+                    cur: torch.Tensor, hreq: torch.Tensor, metric: str,
+                    gamma: float, bo: int = DEFAULT_BO) -> torch.Tensor:
+    """Quantized twin of :func:`_gains_tiles`: per candidate tile the C_a
+    block is quant.py's certified lower bound over the int8 images
+    (requests quantized once, each candidate tile on the fly). lb ≤ C_a
+    elementwise makes every relu slack, hence every gain, an **upper
+    bound** on the exact oracle's: the admissible direction lazy GREEDY
+    needs (placement/device.py seeds its table with them, stale).
+    Returns (O, J) f32."""
+    qx, sx = quant.quantize_int8(x)
+    xd = quant.dequantize_int8(qx, sx)
+    rx = quant.quant_row_radius(sx[:, 0], x.shape[1], metric)
+    x_sq = (xd * xd).sum(-1) if metric in ("l2", "l2sq") else None
+    tiles = []
+    for s in range(0, y.shape[0], bo):
+        kq = quant.quantize_rows(y[s:s + bo], metric)
+        kd = quant.dequantize_int8(kq.q, kq.scale)
+        lb = quant.lb_approx_cost_block(xd, kd, rx, kq.radius, metric,
+                                        gamma, q_sq=x_sq, k_sq=kq.sq_norm)
+        tiles.append(_fold_tile(lb, lam, cur, hreq))
+    if not tiles:
+        return torch.zeros((0, hreq.shape[1]), dtype=torch.float32,
+                           device=y.device)
+    return torch.cat(tiles)
+
+
 def placement_gains(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
                     cur: torch.Tensor, hreq: torch.Tensor,
-                    metric: str = "l2", gamma: float = 1.0) -> torch.Tensor:
+                    metric: str = "l2", gamma: float = 1.0,
+                    quantize: bool = False) -> torch.Tensor:
     """(O, J) marginal gains of every candidate approximizer (o', j).
 
     x: (R, D) request-object coords; y: (O, D) candidate coords;
     lam, cur: (I, R) per-(ingress, object) rates and current serving
     costs; hreq: (I, J) ingress→cache retrieval costs (+inf allowed).
+    ``quantize=True`` returns certified gain upper bounds over int8
+    images (:func:`_lb_gains_tiles`, never kernel C), as the reference's
+    ``quantize`` takes its jnp path.
     """
+    if quantize:
+        return _lb_gains_tiles(x.float(), y.float(), lam.float(),
+                               cur.float(), _sentinel(hreq), metric, gamma)
     return gains_cuda(x, y, lam, cur, _sentinel(hreq), metric, gamma).T
 
 
 def placement_gains_matrix(ca: torch.Tensor, lam: torch.Tensor,
                            cur: torch.Tensor, hreq: torch.Tensor,
-                           bo: int = DEFAULT_BO) -> torch.Tensor:
+                           bo: int = DEFAULT_BO,
+                           quantize: bool = False) -> torch.Tensor:
     """Gain oracle over an explicit (R, O) C_a matrix; returns (O, J) f32
-    — the small-instance twin of :func:`placement_gains`."""
+    — the small-instance twin of :func:`placement_gains`.
+    ``quantize=True`` replaces each C_a row by the lower bound of its
+    int8 image, relu(deq − ELEM_ERR·scale) ≤ ca, making the gains
+    admissible upper bounds as :func:`placement_gains`'s are."""
     h = _sentinel(hreq)
     lam, cur, ca = lam.float(), cur.float(), ca.float()
+    if quantize:
+        qc, sc = quant.quantize_int8(ca)
+        ca = (quant.dequantize_int8(qc, sc)
+              - quant.ELEM_ERR * sc).clamp_min(0.0)
     return torch.cat([_fold_tile(ca[:, s:s + bo], lam, cur, h)
                       for s in range(0, ca.shape[1], bo)])
 

@@ -176,3 +176,73 @@ def sharded_fused_lookup_ref(queries: torch.Tensor, keys: torch.Tensor,
     stk = [torch.stack([p[i] for p in parts]) for i in range(5)]
     return reduce_shard_minima(*stk, h_repo=h_repo, repo_level=repo_level,
                                fold_repo=fold_repo)
+
+
+def pruned_fused_lookup_ref(queries: torch.Tensor, keys: torch.Tensor,
+                            h_key: torch.Tensor, meta: torch.Tensor,
+                            tables, cap_union: int, metric: str = "l2",
+                            gamma: float = 1.0, h_repo: float = 0.0,
+                            repo_level: int = -1, fold_repo: bool = True
+                            ) -> tuple[torch.Tensor, ...]:
+    """Oracle of ops.pruned_fused_lookup: the same candidate hashing,
+    union and row gather (kernels/knn/lsh.py), the scan through
+    :func:`fused_lookup_ref`. ``tables`` is a lsh.CandidateTables.
+    Returns (cost, approx_cost, level, slot, payload, bound)."""
+    from repro_torch.kernels.knn.lsh import (candidate_matrix,
+                                             candidate_union,
+                                             gather_candidate_rows,
+                                             unscanned_h_bound)
+    if keys.shape[0] == 0:
+        out = fused_lookup_ref(queries, keys, h_key, meta, metric=metric,
+                               gamma=gamma, h_repo=h_repo,
+                               repo_level=repo_level, fold_repo=fold_repo)
+        return (*out, torch.tensor(_INF, dtype=torch.float32,
+                                   device=queries.device))
+    dev = keys.device
+    cand = candidate_matrix(tables.kind, torch.as_tensor(tables.proj,
+                                                         device=dev),
+                            torch.as_tensor(tables.buckets, device=dev),
+                            queries, tables.n_probes)
+    kept, kept_mask = candidate_union(cand, keys.shape[0], cap_union)
+    gk, gh, gm = gather_candidate_rows(keys, h_key, meta, kept)
+    out = fused_lookup_ref(queries, gk, gh, gm, metric=metric, gamma=gamma,
+                           h_repo=h_repo, repo_level=repo_level,
+                           fold_repo=fold_repo)
+    return (*out, unscanned_h_bound(h_key, meta, kept_mask))
+
+
+def quantized_fused_lookup_ref(queries: torch.Tensor, keys: torch.Tensor,
+                               h_key: torch.Tensor, meta: torch.Tensor,
+                               kq=None, top_t: int = 64,
+                               metric: str = "l2", gamma: float = 1.0,
+                               h_repo: float = 0.0, repo_level: int = -1,
+                               fold_repo: bool = True
+                               ) -> tuple[torch.Tensor, ...]:
+    """Oracle of ops.quantized_fused_lookup: the same first-pass
+    selection (one tile over every key) and union gather, the exact
+    rescore through :func:`fused_lookup_ref`. ``kq``
+    (quant.quantize_rows of ``keys``) is built when omitted. Returns
+    (cost, approx_cost, level, slot, payload, bound), the bound (B,)."""
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.knn.lsh import (candidate_union,
+                                             gather_candidate_rows)
+    from repro_torch.kernels.knn.ops import (_quant_union_cap,
+                                             _quantized_select)
+    nq = queries.shape[0]
+    if keys.shape[0] == 0:
+        out = fused_lookup_ref(queries, keys, h_key, meta, metric=metric,
+                               gamma=gamma, h_repo=h_repo,
+                               repo_level=repo_level, fold_repo=fold_repo)
+        return (*out, torch.full((nq,), _INF, dtype=torch.float32,
+                                 device=queries.device))
+    if kq is None:
+        kq = quant.quantize_rows(keys.float(), metric)
+    cand, bound = _quantized_select(queries.float(), h_key, meta[3, :] > 0,
+                                    kq, top_t, keys.shape[0], metric, gamma)
+    kept, _ = candidate_union(cand, keys.shape[0],
+                              _quant_union_cap(keys.shape[0], nq, top_t))
+    gk, gh, gm = gather_candidate_rows(keys, h_key, meta, kept)
+    out = fused_lookup_ref(queries, gk, gh, gm, metric=metric, gamma=gamma,
+                           h_repo=h_repo, repo_level=repo_level,
+                           fold_repo=fold_repo)
+    return (*out, bound)

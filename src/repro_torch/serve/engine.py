@@ -6,8 +6,12 @@ Counterpart of ``repro.serve.engine`` for this slice of the port:
 
 * the data plane — every served batch is one fused lookup (kernel A,
   ``EngineConfig.fused``), or one KNN launch per level (kernel B) with
-  ``fused=False``; batches are padded to a power-of-two bucket
-  (``EngineConfig.bucket``) and the padding is masked out of every stat;
+  ``fused=False``; ``EngineConfig.prune`` ("lsh" | "kmeans") and
+  ``quantize`` put the candidate pre-filter and the int8 first pass in
+  front of kernel A, and ``verify`` re-scans what they cannot certify,
+  serving exactly what the exact lookup serves; batches are padded to a
+  power-of-two bucket (``EngineConfig.bucket``) and the padding is
+  masked out of every stat;
 * the control plane — ``refresh_placement`` re-solves the offline
   problem on the observed demand window: by default the cascade (GREEDY
   seeded by the gain oracle, kernel C, then a LOCALSWAP polish) on a
@@ -43,9 +47,8 @@ Counterpart of ``repro.serve.engine`` for this slice of the port:
 
 The repository is the dense decoder of repro_torch.models, its prefill
 attention on kernel E when the engine's ``cfg.use_flash_attention`` is
-set. The flags of later slices (``prune``, ``verify``, ``quantize``,
-``sharded``) raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+set. ``EngineConfig.sharded``, a later slice, raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -109,9 +112,12 @@ class EngineConfig:
     algo: str = "cascade"         # greedy | localswap | cascade
     fused: bool = True            # single fused lookup kernel per batch
     sharded: bool = False         # not ported: queue 1 item 11
-    prune: str | None = None      # not ported: queue 1 item 10
-    verify: bool = False          # not ported: queue 1 item 10
-    quantize: bool = False        # not ported: queue 1 item 10
+    prune: str | None = None      # "lsh" | "kmeans" candidate pre-filter
+    verify: bool = False          # exact re-scan past the pruning bound
+    quantize: bool = False        # int8 lower-bound first pass + exact
+    #                               rescore of the top candidates
+    #                               (composes with prune; with
+    #                               verify=True bit-identical to exact)
     device_placement: bool = True  # device-resident placement control plane
     swap_tol: float = 1e-3        # device LOCALSWAP accept margin
     netduel: bool = False         # §5 online duels on the device, per batch
@@ -140,9 +146,7 @@ class EngineConfig:
     strategy_seed: int = 0        # probcache / rnd-lru coin seed
 
 
-_LATER_SLICES = (
-    ("prune", "item 10"), ("verify", "item 10"), ("quantize", "item 10"),
-    ("sharded", "item 11"))
+_LATER_SLICES = (("sharded", "item 11"),)
 
 
 def _check_ported(ecfg: EngineConfig) -> None:
@@ -586,7 +590,9 @@ class SimCacheEngine:
                                                  device=self.device)]
             if bucket:
                 q = _pad_rows(q, bucket_size(n, self.ecfg.min_bucket))
-            res = self.simcache.lookup(q)
+            res = self.simcache.lookup(q, prune=self.ecfg.prune,
+                                       verify=self.ecfg.verify,
+                                       quantize=self.ecfg.quantize)
             # slice the valid prefix before any accounting
             hits = res.hit[:n].cpu().numpy()
             payloads = res.payload[:n].cpu().numpy()

@@ -262,11 +262,77 @@ def test_observed_instance_cold_uniform_and_unfloored():
     assert np.all(lam[0, 3:] == 0.0)
 
 
-@pytest.mark.parametrize("flag", [
-    dict(prune="lsh"), dict(verify=True), dict(quantize=True), dict(sharded=True)])
+@pytest.mark.parametrize("flag", [dict(sharded=True)])
 def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
         make_engine(**flag)
+
+
+FLAGS = [dict(quantize=True, verify=True), dict(prune="lsh", verify=True),
+         dict(prune="kmeans", verify=True),
+         dict(prune="lsh", quantize=True, verify=True)]
+
+
+def _cold_refresh_warm(**kw):
+    """(cold stats, cold responses, slots, warm stats, warm responses,
+    engine) of one engine over the file's cold and warm traces."""
+    eng, _, _ = make_engine(**kw)
+    s_cold, o_cold = run(eng, trace(3))
+    eng.refresh_placement()
+    s_warm, o_warm = run(eng, trace(6, seed=1))
+    return s_cold, o_cold, eng.placement.slots.copy(), s_warm, o_warm, eng
+
+
+@pytest.fixture(scope="module")
+def exact_engine_run():
+    return _cold_refresh_warm()
+
+
+@pytest.mark.parametrize("flags", FLAGS,
+                         ids=["quantize", "lsh", "kmeans", "lsh+quantize"])
+def test_engine_pruned_and_quantized_serve_as_exact(flags, exact_engine_run):
+    """The compressed and pruned data plane behind the engine: with
+    ``verify`` each flag set serves a cold, refreshed and warm trace with
+    the exact engine's hits, responses and costs, bit for bit (the
+    verified lookup is the exact one by construction), on the same
+    installed placement."""
+    c0, oc0, sl0, w0, ow0, _ = exact_engine_run
+    c1, oc1, sl1, w1, ow1, eng = _cold_refresh_warm(**flags)
+    if flags.get("prune") == "kmeans":   # these tables miss: re-scans ran
+        assert eng.simcache.rescan_queries > 0
+    np.testing.assert_array_equal(sl1, sl0)
+    assert (oc1, ow1) == (oc0, ow0)
+    for a, b in ((c1, c0), (w1, w0)):
+        assert (a.n_requests, a.n_hits, a.model_calls, a.total_cost,
+                a.total_approx_cost) == (b.n_requests, b.n_hits,
+                                         b.model_calls, b.total_cost,
+                                         b.total_approx_cost)
+    assert w1.hit_rate > 0.5
+
+
+def test_engine_flags_match_reference_engine():
+    """One flag set against the reference's engine: the same slots and
+    warm hits, responses and model calls."""
+    jcfg = dataclasses.replace(jget_smoke("granite-3-2b"), **SMALL)
+    jparams = jmodel.init_params(jcfg, 0)
+    cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), **SMALL)
+    model = convert.from_jax_params(cfg, jax.tree.map(np.asarray, jparams),
+                                    device="cpu")
+    coords = jcat.embedding_catalog(n=400, dim=16, seed=1).coords
+    kw = dict(ECFG, prune="lsh", quantize=True, verify=True)
+    jeng = JEngine(jcfg, jparams, JConfig(**kw), coords)
+    eng = SimCacheEngine(cfg, model, EngineConfig(**kw), coords,
+                         device="cpu")
+    out = []
+    for e, conv in ((jeng, jnp.asarray), (eng, np.asarray)):
+        run(e, trace(2), conv)
+        e.refresh_placement()
+        out.append((e.placement.slots.copy(), *run(e, trace(4, seed=1),
+                                                   conv)))
+    (jslots, jw, jow), (slots, w, ow) = out
+    np.testing.assert_array_equal(slots, jslots)
+    assert (w.n_hits, w.model_calls) == (jw.n_hits, jw.model_calls)
+    assert ow == jow
 
 
 def test_multi_ingress_net_raises():

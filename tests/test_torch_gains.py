@@ -129,3 +129,80 @@ def test_gains_matrix_matches_reference():
                                  torch.as_tensor(cur), torch.as_tensor(h),
                                  bo=16).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------- the quantized oracle
+# The int8 oracle (quantize=True) returns certified gain *upper* bounds:
+# against the reference's quantized oracle (its blocked jnp path) it is
+# held to the reference's own kernel-to-oracle tolerance, 5e-5 relative
+# and absolute (a gain is Σ λ·relu(·) of lb blocks whose arithmetic
+# differs between the frameworks by a few ulps, tests/test_torch_quant.py);
+# against the exact gains computed in f64 it must not be lower, less 1e-5
+# relative for its own f32 sums.
+@pytest.mark.parametrize("metric,gamma", [("l1", 1.0), ("l2", 1.0),
+                                          ("l2sq", 1.0), ("l2", 0.7)])
+def test_quantized_gains_match_reference_and_bound_exact(metric, gamma):
+    x, y, lam, cur, h = _inputs(seed=9)
+    hs = np.where(np.isfinite(h), h, H_SENTINEL).astype(np.float32)
+    ref = np.asarray(jgains(*(jnp.asarray(a) for a in (x, y, lam, cur, h)),
+                            metric=metric, gamma=gamma, bo=32,
+                            quantize=True))
+    t = [torch.as_tensor(a) for a in (x, y, lam, cur)]
+    before = gains_cuda.launches
+    got = placement_gains(*t, torch.as_tensor(h), metric=metric,
+                          gamma=gamma, quantize=True).numpy()
+    assert gains_cuda.launches == before
+    np.testing.assert_allclose(got, ref, rtol=5e-5, atol=5e-5)
+    exact = placement_gains_ref(*(a.double() for a in t),
+                                torch.as_tensor(hs).double(), metric,
+                                gamma).numpy()
+    assert np.all(got >= exact * (1 - 1e-5) - 1e-6), \
+        float(np.min(got - exact))
+    assert np.any(got > exact * (1 + 1e-3))       # a bound, not the value
+
+
+def test_quantized_gains_tiles_are_tile_independent():
+    """Candidates quantize per row, so the tile width changes no gain
+    beyond its f32 sums (the request axis is never split)."""
+    from repro_torch.kernels.knn.gains import _lb_gains_tiles
+    x, y, lam, cur, h = _inputs(seed=10)
+    hs = torch.as_tensor(np.where(np.isfinite(h), h, H_SENTINEL)
+                         .astype(np.float32))
+    t = [torch.as_tensor(a) for a in (x, y, lam, cur)]
+    a = _lb_gains_tiles(*t, hs, "l2", 1.0, bo=16)
+    b = _lb_gains_tiles(*t, hs, "l2", 1.0, bo=256)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
+    assert a.shape == (83, 3)
+    empty = _lb_gains_tiles(t[0], t[1][:0], t[2], t[3], hs, "l2", 1.0)
+    assert empty.shape == (0, 3)
+
+
+def test_quantized_gains_matrix_matches_reference_and_bounds_exact():
+    rng = np.random.default_rng(3)
+    ca = (rng.random((60, 45)) * 5).astype(np.float32)
+    ca[:, 7] = 0.0                                      # an exact hit
+    lam = rng.random((2, 60)).astype(np.float32)
+    cur = (rng.random((2, 60)) * 6).astype(np.float32)
+    h = np.array([[0.0, 1.0, np.inf], [np.inf, 0.5, 2.0]], np.float32)
+    j = [jnp.asarray(a) for a in (ca, lam, cur, h)]
+    t = [torch.as_tensor(a) for a in (ca, lam, cur, h)]
+    ref = np.asarray(jgains_matrix(*j, bo=16, quantize=True))
+    got = placement_gains_matrix(*t, bo=16, quantize=True).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    exact = placement_gains_matrix(*t, bo=16).numpy()
+    assert np.all(got >= exact * (1 - 1e-5) - 1e-6)
+
+
+@pytest.mark.parametrize("materialize", [True, False])
+def test_quantized_instance_gains_match_reference(materialize):
+    jinst, inst = tree_instances()
+    cur = np.repeat(inst.net.h_repo[:, None].astype(np.float32),
+                    inst.cat.n, axis=1)
+    d = DeviceInstance.from_instance(inst, materialize_ca=materialize,
+                                     device="cpu")
+    jd = JDevInst.from_instance(jinst, materialize_ca=materialize)
+    g = d.gains(torch.as_tensor(cur), quantize=True).numpy()
+    gj = np.asarray(jd.gains(jnp.asarray(cur), quantize=True))
+    np.testing.assert_allclose(g, gj, rtol=F3_RTOL, atol=F3_ATOL)
+    exact = d.gains(torch.as_tensor(cur)).numpy()
+    assert np.all(g >= exact - (F3_RTOL * np.abs(exact) + F3_ATOL))

@@ -869,3 +869,94 @@ def test_surrogate_cost_is_bitwise_run_to_run(cuda):
     costs = {surrogate_cost(net, lam, balls=b, device=cuda)
              for _ in range(4)}
     assert len(costs) == 1
+
+
+# ------------------------------------------ the compressed and pruned plane
+def _plane_net(cuda, K: int, metric: str, seed: int = 0):
+    """A three-level network of K keys (D 100, unit normals) on the card,
+    and 256 queries near its keys plus some far ones."""
+    from repro_torch.core.simcache import CacheLevel, SimCacheNetwork
+    g = torch.Generator().manual_seed(seed)
+    keys = torch.randn(K, 100, generator=g)
+    sizes = (K // 8, K // 4, K - K // 8 - K // 4)
+    levels, a = [], 0
+    for j, (n, h) in enumerate(zip(sizes, (0.0, 0.5, 2.0))):
+        levels.append(CacheLevel(keys=keys[a:a + n].to(cuda),
+                                 values=torch.arange(a, a + n,
+                                                     dtype=torch.int32,
+                                                     device=cuda), h=h))
+        a += n
+    net = SimCacheNetwork(levels=levels, h_repo=14.0, metric=metric)
+    pick = torch.randint(0, K, (192,), generator=g)
+    q = torch.cat([keys[pick] + 0.05 * torch.randn(192, 100, generator=g),
+                   2.0 * torch.randn(64, 100, generator=g)]).to(cuda)
+    return net, q
+
+
+def _bits_equal(a, b) -> bool:
+    fields = ("cost", "approx_cost", "level", "slot", "payload", "hit")
+    view = (lambda t: t.view(torch.int32)            # noqa: E731
+            if t.dtype == torch.float32 else t)
+    return all(torch.equal(view(getattr(a, f)), view(getattr(b, f)))
+               for f in fields)
+
+
+@pytest.mark.parametrize("K", [448, 65_536])
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+@pytest.mark.parametrize("flags", [dict(quantize=True), dict(prune="lsh"),
+                                   dict(prune="kmeans"),
+                                   dict(prune="lsh", quantize=True)],
+                         ids=["quantize", "lsh", "kmeans", "lsh+quantize"])
+def test_verified_lookups_bitwise_exact_on_card(cuda, K, metric, flags):
+    """``verify=True`` through kernel A over the gathered rows and the
+    re-scans: every field bit for bit the exact fused lookup (kernel A
+    over all K keys), launches one per rescore plus one per re-scan."""
+    net, q = _plane_net(cuda, K, metric)
+    exact = net.lookup(q)
+    n0, r0 = fused_lookup_cuda.launches, net.rescan_calls
+    res = net.lookup(q, verify=True, top_t=16, **flags)
+    torch.cuda.synchronize()
+    assert _bits_equal(res, exact)
+    assert fused_lookup_cuda.launches - n0 == 1 + net.rescan_calls - r0
+
+
+@pytest.mark.parametrize("K", [448, 65_536])
+def test_quantized_certificate_honest_on_card(cuda, K):
+    """Rows that beat their certificate unverified are exact; the int8
+    lower bound stays below the f64 C_a on a sampled tile."""
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.knn import quantized_fused_lookup
+    net, q = _plane_net(cuda, K, "l2", seed=1)
+    exact = net.lookup(q)
+    keys, h_key, meta = net.fused_layout()
+    out = quantized_fused_lookup(q, keys, h_key, meta, net._quant_rows(),
+                                 top_t=4, h_repo=net.h_repo)
+    safe = out[0] < out[5]
+    assert bool(safe.any())
+    for got, want in zip(out[:5], (exact.cost, exact.approx_cost,
+                                   exact.level, exact.slot, exact.payload)):
+        assert torch.equal(got[safe], want[safe])
+    lb = quant.lb_approx_cost_tiles(q, quant.quantize_rows(keys[:2048],
+                                                           "l2"), "l2", 1.0)
+    d64 = torch.cdist(q.double(), keys[:2048].double())
+    assert bool((lb.double() <= d64).all())
+
+
+def test_quantized_gains_admissible_against_kernel_c(cuda):
+    """``placement_gains(quantize=True)`` runs no kernel C and bounds
+    kernel C's gains from above, less their C_a tolerance."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2000, 100, generator=g).to(cuda)
+    lam = torch.rand(1, 2000, generator=g).to(cuda)
+    cur = torch.full((1, 2000), 30.0, device=cuda)
+    H = torch.tensor([[0.0, 1.5, 15.0]], device=cuda)
+    exact = G.placement_gains(x, x, lam, cur, H)
+    n0 = G.gains_cuda.launches
+    quant_g = G.placement_gains(x, x, lam, cur, H, quantize=True)
+    torch.cuda.synchronize()
+    assert G.gains_cuda.launches == n0
+    n2 = (x * x).sum(1)
+    d = _dense_ca(x, x, "l2", 1.0)
+    t2 = 16 * U32 * (n2[:, None] + n2[None, :])
+    tol = (lam @ (t2 / (d + t2.sqrt()))).T            # (O, 1)
+    assert bool((quant_g >= exact - tol - 1e-4 * exact.abs()).all())

@@ -29,6 +29,7 @@ from repro.core import topology as jtopology
 from repro.core import scenarios as jscenarios
 from repro.core.analysis import hitrate as R
 from repro.core.routing import StrategyPlane as JStrategyPlane
+from repro.kernels.knn import lsh as jlsh
 from repro_torch.core import catalog as catalog_api
 from repro_torch.core import demand as demand_api
 from repro_torch.core import scenarios, topology
@@ -39,6 +40,7 @@ from repro_torch.core.analysis import (HitRatePrediction, exact_hit_balls,
                                        surrogate_cost)
 from repro_torch.core.analysis import hitrate as P
 from repro_torch.core.routing import StrategyPlane
+from repro_torch.kernels.knn import SimHashPolicy
 
 T_RTOL = 1e-4
 P_ATOL = 1e-5
@@ -177,13 +179,102 @@ def test_similarity_balls_auto_and_max_ball_match_reference():
     assert b.max_size == 3 and b.truncated > 0
 
 
+NEAR_THETA = 1e-5     # a pair within this of θ (relative) may flip
+
+
+def _ca64(coords, o, members, metric, gamma):
+    diff = coords[members].astype(np.float64) - coords[o].astype(np.float64)
+    if metric == "l1":
+        d = np.abs(diff).sum(-1)
+    else:
+        d = (diff ** 2).sum(-1)
+        d = d if metric == "l2sq" else np.sqrt(d)
+    return d ** gamma
+
+
+def _same_lsh_balls(b, jb, coords, metric="l2", gamma=1.0):
+    """LSH balls against the reference's: each row's members equal, in
+    order, with distances to 1e-5 relative, except on a row holding a
+    pair within ``NEAR_THETA``·θ of θ (the f32 C_a filter of either
+    framework may put it on either side): there the member sets may
+    differ by such pairs alone. Returns the rows left out."""
+    n, theta = b.n_objects, b.theta
+    assert (n, theta) == (jb.n_objects, jb.theta)
+    near = []
+    for o in range(n):
+        mi, mj = b.idx[o][b.idx[o] < n], jb.idx[o][jb.idx[o] < n]
+        if np.array_equal(mi, mj):
+            continue
+        diff = np.setxor1d(mi, mj)
+        band = np.abs(_ca64(coords, o, diff, metric, gamma) - theta)
+        assert diff.size and np.all(band <= NEAR_THETA * theta), o
+        near.append(o)
+    rows = np.setdiff1d(np.arange(n), near)
+    np.testing.assert_array_equal(b.idx[rows], jb.idx[rows])
+    np.testing.assert_allclose(b.dist[rows], jb.dist[rows], rtol=1e-5,
+                               atol=0)
+    np.testing.assert_allclose(b.q[rows], jb.q[rows], rtol=0, atol=1e-5)
+    if not near:
+        assert (b.truncated, b.max_size) == (jb.truncated, jb.max_size)
+    return near
+
+
+@pytest.mark.parametrize("metric,gamma", [("l2", 1.0), ("l1", 1.0),
+                                          ("l2sq", 1.0), ("l2", 0.7)])
+@pytest.mark.parametrize("q_mode", ["hard", "rnd"])
+@pytest.mark.parametrize("max_ball", [None, 6])
+def test_lsh_balls_match_reference(metric, gamma, q_mode, max_ball):
+    """``mode="lsh"``: the same SimHash tables (seeded), the same
+    candidates, the exact filter, dedupe and packing on the port's
+    device against the reference's per-object loop."""
+    cat = catalog_api.embedding_catalog(n=1500, dim=8, seed=4)
+    d = np.asarray(R._block_ca_np(cat.coords[:300], cat.coords, metric,
+                                  gamma))
+    theta = float(np.quantile(d[d > 0], 0.01))
+    kw = dict(metric=metric, gamma=gamma, q_mode=q_mode, mode="lsh",
+              max_ball=max_ball, seed=5)
+    b = similarity_balls(cat.coords, theta, block=256, **kw, **CPU)
+    jb = R.similarity_balls(cat.coords, theta, **kw)
+    assert b.mean_size > 2.0
+    assert _same_lsh_balls(b, jb, cat.coords, metric, gamma) == []
+    assert np.all(b.idx[:, 0] == np.arange(1500))      # self first, d 0
+    assert np.all(b.dist[:, 0] == 0.0)
+    if max_ball is not None:
+        assert b.max_size == max_ball and b.truncated > 0
+
+
+def test_lsh_balls_are_subsets_of_the_exact_balls():
+    """Every LSH member lies within θ (the exact filter), self always
+    present; the LSH ball is a subset of the exact one."""
+    cat = catalog_api.embedding_catalog(n=900, dim=6, seed=8)
+    theta = 60.0
+    lb = similarity_balls(cat.coords, theta, mode="lsh", seed=1, **CPU)
+    eb = similarity_balls(cat.coords, theta, mode="exact", **CPU)
+    n = 900
+    for o in range(n):
+        li = set(lb.idx[o][lb.idx[o] < n].tolist())
+        assert o in li and li <= set(eb.idx[o][eb.idx[o] < n].tolist())
+    assert lb.mean_size > 2.0 and lb.mean_size <= eb.mean_size
+
+
 def test_lsh_enumeration_raises_naming_item_10():
-    coords = np.zeros((30, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        similarity_balls(coords, 1.0, mode="lsh", **CPU)
-    big = np.zeros((P.EXACT_MAX_OBJECTS + 1, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        similarity_balls(big, 1.0, **CPU)
+    """``mode="lsh"`` and ``mode="auto"`` past the exact limit, which
+    raised naming ROADMAP item 10 until that item came over, run and
+    give the reference's balls; an unknown mode or metric still
+    raises."""
+    coords = np.random.default_rng(3).normal(size=(300, 3)) \
+        .astype(np.float32)
+    _same_lsh_balls(similarity_balls(coords, 0.5, mode="lsh", **CPU),
+                    R.similarity_balls(coords, 0.5, mode="lsh"), coords)
+    big = np.random.default_rng(4).normal(
+        size=(P.EXACT_MAX_OBJECTS + 1, 16)).astype(np.float32)
+    pol = dict(n_tables=2, n_bits=10, n_probes=2, seed=2)
+    b = similarity_balls(big, 3.0, max_ball=8, policy=SimHashPolicy(**pol),
+                         **CPU)
+    jb = R.similarity_balls(big, 3.0, max_ball=8,
+                            policy=jlsh.SimHashPolicy(**pol))
+    assert b.mean_size > 1.0
+    assert _same_lsh_balls(b, jb, big) == []
     with pytest.raises(ValueError, match="unknown mode"):
         similarity_balls(coords, 1.0, mode="ann", **CPU)
     with pytest.raises(ValueError, match="unknown metric"):

@@ -27,7 +27,9 @@ MODULES = [
     "repro_torch.core.placement.continuous",
     "repro_torch.core.placement.warmstart", "repro_torch.core.scenarios",
     "repro_torch.core.routing", "repro_torch.core.analysis",
-    "repro_torch.core.analysis.hitrate"]
+    "repro_torch.core.analysis.hitrate", "repro_torch.kernels.quant",
+    "repro_torch.kernels.knn.lsh", "repro_torch.kernels.knn.ops",
+    "repro_torch.kernels.knn.ref", "repro_torch.kernels.knn.gains"]
 
 _PROBE = """
 import sys

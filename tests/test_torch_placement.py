@@ -98,6 +98,24 @@ def test_device_greedy_matches_host_and_reference(name, make, materialize):
 
 
 @pytest.mark.parametrize("name,make", ALL)
+@pytest.mark.parametrize("materialize", [True, False])
+def test_device_greedy_quantized_seeds_equal_exact(name, make, materialize):
+    """``quantize=True`` seeds the lazy table with int8 gain upper bounds,
+    marked stale: every pick is re-scored exactly before it is accepted,
+    so the allocation is the exact-seeded run's on both loops, and the
+    reference's quantized run's."""
+    inst, jinst = make(PORT), make(JAX)
+    d = dev(inst, materialize)
+    exact = device_greedy(d)
+    for scan in (True, False):
+        np.testing.assert_array_equal(
+            device_greedy(d, scan=scan, quantize=True), exact)
+    ref = jdevice_greedy(JDevInst.from_instance(
+        jinst, materialize_ca=materialize), quantize=True)
+    np.testing.assert_array_equal(exact, ref)
+
+
+@pytest.mark.parametrize("name,make", ALL)
 def test_greedy_whole_loop_equals_stepped(name, make):
     """The device-resident loop and the host-bookkept stepped form take
     the same decisions, at any refresh batch size."""
