@@ -62,6 +62,16 @@ Phases, one line each before the last:
    gather, rescore and re-scan; table builds on the host. The same four
    runs on the ``bigcache`` network's 16 batches against its fused
    results, A held likewise on the first batch.
+   Then ``sharded_lookup``: item 11's data plane, the key axis in n
+   contiguous shards with one launch of A's shard-local entry
+   (``fold_repo=False``) per shard: ``bigcache``'s network at n = 2, 3
+   and 8 (every batch bitwise the fused result, n launches a lookup, the
+   sharded and fused lookups timed side by side), A on every chunk at
+   n = 8 against its plain version, 5 keys over 8 shards (chunks of
+   padding only) and no keys; then ``compress``'s 10⁶ keys at n = 8,
+   exact and the four verified flag sets, each bitwise the exact result,
+   with A's launches, the re-scanned share and the per-shard table
+   builds.
    Then ``duel``: kernel F, the NETDUEL scan between promotions, at the
    engine's scale (10⁵ objects, K 448, C_a streamed, from random slots,
    4,096 requests, window 256), once through F (counted) and once
@@ -107,6 +117,12 @@ Phases, one line each before the last:
    ``refresh_placement()``, a warm run whose cadence starts a background
    refresh, and ``drain_refresh()``. Kernel E's and A's launches are
    counted over the phase.
+   Then ``sharded_engine``: the same run with ``EngineConfig.sharded``
+   on a 4-shard mesh: the refresh's and the drain's allocations bitwise
+   the ``stream`` phase's, warm hit rate and mean cost equal, A launched
+   4 times a served lookup and C 4 times a synchronous GREEDY seed (once
+   a background one), the batch percentiles beside the ``stream``
+   phase's.
    Then ``duel_engine``: the online plane on the serving path — the
    same engine with ``netduel`` and ``refresh_on_promotion`` (1,024 cold
    requests, ``refresh_placement()``, 4,096 warm requests, the drain),
@@ -124,6 +140,12 @@ Phases, one line each before the last:
    hierarchy, ``placement_gains(quantize=True)`` never below kernel C's
    gains less their tolerance, ``device_greedy(quantize=True)`` bitwise
    the exact-seeded allocation, both timed.
+   Then ``sharded_control``: the candidate-sharded gain oracle (C once a
+   shard and group of 8 caches) at n = 4 on that instance and n = 3 on
+   the ``scenario`` net (J 37), bitwise the unsharded columns; GREEDY on
+   a 4-shard ``DeviceInstance`` bitwise the unsharded allocation; the
+   best-two tables at 10⁵ objects, K 448, n = 4, and a delta refresh
+   forced into its full rebuild, bitwise.
    Then ``hitrate``: the Che plane on the card on the reference's
    full-scale network (scale-free, 41 caches, 4,096 slots, 6
    ingresses) at 20,000 objects: exact balls, the SIM-LRU and RND-LRU
@@ -151,7 +173,9 @@ Phases, one line each before the last:
    launches are those of the ``duel_engine`` run; A's entry also carries
    its launches in the ``warmstart`` run, C's and E's their launches in
    the ``scenario`` runs, and every entry its launches in the ``gate``
-   run; A's also its launches over the ``compress`` runs. Beside the
+   run; A's also its launches over the ``compress`` runs; A's and C's
+   their launches in the sharded phases (``launches_sharded``), and A's
+   the hold of its shard-local entry (``shard_local_hold``). Beside the
    kernels, ``xla_paths``: item 10's torch paths (``_quantized_select``,
    ``candidate_matrix`` + ``candidate_union``, ``_lb_gains_tiles``,
    ``_cand_ca``; XLA in the reference), each timed beside the exact path
@@ -448,19 +472,23 @@ def _plan_fields(torch, Q, K, D) -> dict:
     return dict(q_tile=plan.q_tile, n_splits=plan.n_splits)
 
 
-def hold_fused(torch, q, keys, h_key, meta, h_repo, got) -> dict:
+def hold_fused(torch, q, keys, h_key, meta, h_repo, got,
+               fold_repo: bool = True) -> dict:
     """Kernel A's outputs ``got`` (l2, γ = 1, keys segmented by ascending
-    level, a whole layout or rows gathered from one) against its plain
-    version on the same inputs: every cost within the per-query
-    tolerance, and a differing winner (a key named by its level and
-    slot) only where the plain version sees a near-tie:
-    its own cost at the kernel's key within 2·tol of its min. The fields
-    of the check and ``ok``."""
+    level, a whole layout, rows gathered from one or one shard's chunk)
+    against its plain version on the same inputs: every cost within the
+    per-query tolerance, and a differing winner (a key named by its level
+    and slot) only where the plain version sees a near-tie:
+    its own cost at the kernel's key within 2·tol of its min. With
+    ``fold_repo=False`` (the shard-local entry) the repository is left
+    out of both. The fields of the check and ``ok``."""
     from repro_torch.kernels.knn.ref import _dense_ca, fused_lookup_ref
     Q, K = q.shape[0], keys.shape[0]
     cost_k, ca_k, lvl_k, slot_k, pay_k = got
     cost_p, ca_p, lvl_p, slot_p, pay_p = fused_lookup_ref(
-        q, keys, h_key, meta, "l2", 1.0, h_repo, -1)
+        q, keys, h_key, meta, "l2", 1.0, h_repo, -1, fold_repo=fold_repo)
+    if not fold_repo:
+        h_repo = 3.0e38                  # a repository that never wins
     tol = l2_tolerance(torch, q, keys, ca_p) + 2 * U32 * cost_p
     err = (cost_k - cost_p).abs()
     full = torch.where(meta[3][None, :] > 0,
@@ -1038,7 +1066,7 @@ def phase_compress(torch, big) -> dict:
                 ms=cand_ms, exact_path="fused_lookup (A), K 10⁶",
                 exact_ms=exact_ms)]
     launches = sum(r["fused_lookup_launches"] for r in every)
-    return dict(launches=launches, xla=xla)
+    return dict(launches=launches, xla=xla, plane=(net, q, exact))
 
 
 # the engine phase's serving: batches of 256 requests, 16-token prompts
@@ -1981,28 +2009,44 @@ def phase_prefill(torch):
     return params
 
 
-def phase_stream(torch, params):
-    """The engine with ``use_flash_attention=True`` behind the streaming
-    driver, on the ``prefill`` phase's full-width weights."""
+def stream_run(torch, params, mesh=None) -> dict:
+    """One run of the ``stream`` configuration: granite-3-2b at full
+    width with ``use_flash_attention=True`` behind ``StreamDriver`` (4
+    Zipf(1.0) streams over the 20,000-object catalog, batches of up to
+    256, prompts of 128 tokens): 2,048 cold requests,
+    ``refresh_placement()``, 4,096 warm requests with a background
+    refresh every 32 batches, ``drain_refresh()``. The launch counts are
+    zeroed just before and read just after. With ``mesh`` the engine is
+    sharded (``EngineConfig.sharded``) over it. Returns the engine, its
+    config, the driver's cold and warm stats, the solve's prediction and
+    times, the allocation installed by the refresh, the fused-lookup
+    signatures, the launch counts and the phase's seconds."""
     from repro_torch import tracecount
     from repro_torch.configs.registry import get_config
     from repro_torch.core import catalog as catalog_api
     from repro_torch.core import demand as demand_api
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import (EngineConfig, SimCacheEngine,
-                                   StreamDriver, StreamSpec, bucket_size)
+                                   StreamDriver, StreamSpec)
 
     cfg = dataclasses.replace(get_config("granite-3-2b"),
                               use_flash_attention=True)
     cat = catalog_api.embedding_catalog(n=20_000, dim=100, seed=1)
-    ecfg = EngineConfig(h_ici=15.0, h_dcn=150.0, h_model=1000.0)
-    eng = SimCacheEngine(cfg, params, ecfg, cat.coords)
+    ecfg = EngineConfig(h_ici=15.0, h_dcn=150.0, h_model=1000.0,
+                        sharded=mesh is not None)
+    eng = SimCacheEngine(cfg, params, ecfg, cat.coords, mesh=mesh)
     streams = [StreamSpec(demand=demand_api.zipf(cat, alpha=1.0, seed=s + 1),
                           rate=1.0 + s, seed=s + 1, name=f"stream{s}")
                for s in range(4)]
     drv = StreamDriver(eng, streams, max_batch=256, batch_window=2.0,
                        prompt_len=128, refresh_every=0)
-    refresh_every = 32
+    overlap = []             # per served batch: a background solve running
+    serve = eng.serve
+
+    def serve_marked(*a, **kw):
+        overlap.append(eng.refresh_in_flight)
+        return serve(*a, **kw)
+    eng.serve = serve_marked
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                        # the main path's run
     t0 = time.perf_counter()
@@ -2012,19 +2056,37 @@ def phase_stream(torch, params):
         t = time.perf_counter()
         pred = eng.refresh_placement()
         refresh_s = time.perf_counter() - t
-        drv.refresh_every = refresh_every
+        refreshed = np.asarray(eng.placement.slots).copy()
+        drv.refresh_every = 32
         warm = drv.run(4096)
         t = time.perf_counter()
         drained = drv.drain_refresh()
         drain_s = time.perf_counter() - t
         signatures = snap.delta("fused_lookup")
     counts = launch_counts()                      # read just after
-    phase_s = time.perf_counter() - t0
+    return dict(eng=eng, drv=drv, cfg=cfg, cat=cat, ecfg=ecfg,
+                streams=streams, overlap=overlap[-warm.n_batches:],
+                cold=cold, cold_stats=cold_stats, pred=pred,
+                refresh_s=refresh_s, refreshed=refreshed, warm=warm,
+                drained=drained, drain_s=drain_s, signatures=signatures,
+                counts=counts, phase_s=time.perf_counter() - t0)
+
+
+def phase_stream(torch, params):
+    """The engine with ``use_flash_attention=True`` behind the streaming
+    driver, on the ``prefill`` phase's full-width weights
+    (:func:`stream_run`). Returns its launch counts and the run."""
+    from repro_torch.serve import bucket_size
+    run = stream_run(torch, params)
+    eng, cfg, cat, ecfg = run["eng"], run["cfg"], run["cat"], run["ecfg"]
+    cold, cold_stats, warm = run["cold"], run["cold_stats"], run["warm"]
+    counts, signatures = run["counts"], run["signatures"]
+    refresh_every = 32
     w = eng.stats
     buckets = sorted({bucket_size(n, ecfg.min_bucket)
                       for n in warm.batch_sizes})
     res = dict(model=cfg.name, n_layers=cfg.n_layers, catalog=cat.n,
-               dim=cat.dim, streams=len(streams), max_batch=256,
+               dim=cat.dim, streams=len(run["streams"]), max_batch=256,
                batch_window=2.0, prompt_len=128,
                cold=dict(requests=cold.n_requests, batches=cold.n_batches,
                          req_per_s=cold.requests_per_s, p50_ms=cold.p50_ms,
@@ -2032,7 +2094,7 @@ def phase_stream(torch, params):
                          hit_rate=cold_stats.hit_rate,
                          mean_cost=cold_stats.mean_cost,
                          model_calls=cold_stats.model_calls),
-               refresh_s=refresh_s, predicted_cost=pred,
+               refresh_s=run["refresh_s"], predicted_cost=run["pred"],
                solve=dict(eng.solve_timings),
                warm=dict(requests=warm.n_requests, batches=warm.n_batches,
                          req_per_s=warm.requests_per_s, p50_ms=warm.p50_ms,
@@ -2045,9 +2107,9 @@ def phase_stream(torch, params):
                          refreshes_started=warm.refreshes_started,
                          swaps_in_run=warm.swaps,
                          max_swap_stall_ms=warm.max_swap_stall_s * 1e3),
-               drain=dict(swapped=drained, seconds=drain_s),
+               drain=dict(swapped=run["drained"], seconds=run["drain_s"]),
                swaps=eng.swap_count, fused_lookup_signatures=signatures,
-               launches=counts, phase_s=phase_s,
+               launches=counts, phase_s=run["phase_s"],
                max_memory_allocated_gib=torch.cuda.max_memory_allocated()
                / 2 ** 30)
     log("stream", **res)
@@ -2057,7 +2119,7 @@ def phase_stream(torch, params):
               warm.refreshes_started >= 1, not eng.refresh_in_flight]
     if not all(checks):
         raise RuntimeError(f"stream phase failed its checks: {checks}")
-    return counts
+    return counts, run
 
 
 SCENARIO_CATALOG = dict(n=20_000, dim=100, seed=1)   # the stream's
@@ -2244,6 +2306,380 @@ def phase_gain_quant(torch) -> dict:
                 ms=times["quantized_ms"],
                 exact_path="placement_gains (C), R = O = 20,000",
                 exact_ms=times["exact_ms"])
+
+
+# the sharded phase: shard counts of the data plane on bigcache's network
+SHARD_COUNTS = (2, 3, 8)
+SHARD_COMPRESS, SHARD_GAINS, SHARD_SCENARIO, SHARD_ENGINE = 8, 4, 3, 4
+
+
+def _same_result(torch, a, b) -> bool:
+    """Two (cost, C_a, level, slot, payload) tuples equal, floats bit for
+    bit."""
+    bits = lambda t: (t.view(torch.int32)            # noqa: E731
+                      if t.dtype == torch.float32 else t)
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def host_ops(torch, fn, iters: int, top: int = 8) -> dict:
+    """Where the host's time of ``fn`` goes: torch.profiler's CPU ops
+    over ``iters`` calls after one warm-up, the ``top`` by self time,
+    each with its calls and self milliseconds per call of ``fn``, and
+    the host's wall time per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        wall = (time.perf_counter() - t) / iters * 1e3
+        torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return dict(wall_ms=wall, ops=[
+        dict(name=e.key, calls=e.count / iters,
+             self_ms=e.self_cpu_time_total / 1e3 / iters)
+        for e in ops[:top]])
+
+
+def phase_sharded_lookup(torch, big, plane) -> dict:
+    """Item 11's data plane on one card: the key axis in n contiguous
+    balanced shards, kernel A's shard-local entry (``fold_repo=False``)
+    launched once per shard in turn, the minima reduced on the card.
+    On ``bigcache``'s network (65,536 keys, 16 batches of 256) at n = 2,
+    3 and 8, each run counted alone (launch counts zeroed just before,
+    read just after): every batch bitwise the fused result, n launches
+    of A a lookup; the sharded and the fused lookup of one batch timed
+    side by side (CUDA events and the profiler's device time), and the
+    host's ops of the n = 8 lookup by self time. Outside
+    the counted runs, A on every chunk of the first batch at n = 8
+    against its plain version with ``fold_repo=False`` (the first card
+    runs of that entry), and two edge networks: 5 keys over 8 shards
+    (3 chunks of padding, each returning (+INF, 0, −1, 0, −1)) and no
+    keys (the repository, no launch). Then ``compress``'s 10⁶-key
+    network (D 64, 64 queries) at n = 8: the exact sharded lookup and
+    the four verified flag sets, each bitwise the exact fused result,
+    with A's launches a lookup (n a scan plus n a re-scan), the
+    re-scanned share and the per-shard table builds (host seconds)."""
+    from repro_torch.core.simcache import CacheLevel, SimCacheNetwork
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.knn import KMeansPolicy
+    from repro_torch.kernels.knn.knn import fused_lookup_cuda
+    from repro_torch.kernels.knn.ops import _shard_chunks
+    from repro_torch.launch.mesh import make_lookup_mesh
+    net, queries, fused = big
+    h_repo = net.h_repo
+    t0 = time.perf_counter()
+    runs, launches = {}, 0
+    q0 = queries[0]
+    for n in SHARD_COUNTS:
+        snet = dataclasses.replace(net, sharded=True,
+                                   mesh=make_lookup_mesh(n))
+        snet.lookup(q0)                           # layout and warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()                     # this shard count's run
+        got = [snet.lookup(q) for q in queries]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches += counts["fused_lookup"]
+        runs[n] = dict(
+            bitwise_equal_fused=all(bitwise_equal(torch, a, b)
+                                    for a, b in zip(got, fused)),
+            fused_lookup_launches=counts["fused_lookup"],
+            launches_expected=n * len(queries),
+            chunk_keys=snet.sharded_layout(n)[0].shape[0] // n,
+            ms=cuda_ms(torch, lambda: snet.lookup(q0), 20),
+            device_ms=device_ms(torch, lambda: snet.lookup(q0), 20, "",
+                                tries=5)["device_ms"],
+            plan=_plan_fields(torch, q0.shape[0],
+                              snet.sharded_layout(n)[0].shape[0] // n,
+                              q0.shape[1]))
+    fused_ms = cuda_ms(torch, lambda: net.lookup(q0), 20)
+    fused_dev = device_ms(torch, lambda: net.lookup(q0), 20, "",
+                          tries=5)["device_ms"]
+    host = host_ops(torch, lambda: snet.lookup(q0), 20)   # n = 8
+
+    # kernel A's shard-local entry on every chunk at n = 8
+    held = []
+    for k, h, m in _shard_chunks(*net.fused_layout(), 8):
+        out = fused_lookup_cuda(q0, k, h, m, metric="l2", gamma=1.0,
+                                h_repo=h_repo, repo_level=-1,
+                                fold_repo=False)
+        held.append(dict(hold_fused(torch, q0, k, h, m, h_repo, out,
+                                    fold_repo=False), K=k.shape[0]))
+    hold_ok = all(x["ok"] for x in held)
+
+    # edge networks: chunks of padding only, and no keys at all
+    small = SimCacheNetwork(levels=[CacheLevel(
+        keys=net.levels[0].keys[:5].clone(),
+        values=torch.arange(5, dtype=torch.int32, device="cuda"), h=0.0)],
+        h_repo=h_repo)
+    ssmall = dataclasses.replace(small, sharded=True,
+                                 mesh=make_lookup_mesh(8))
+    reset_launch_counts()
+    edge = ssmall.lookup(q0)
+    torch.cuda.synchronize()
+    edge_launches = launch_counts()["fused_lookup"]
+    pad_ok = True
+    for k, h, m in _shard_chunks(*ssmall.sharded_layout(8), 8)[5:]:
+        c, ca, lvl, slot, pay = fused_lookup_cuda(
+            q0, k, h, m, h_repo=h_repo, repo_level=-1, fold_repo=False)
+        pad_ok &= bool((c == 3.0e38).all() and (ca == 0).all()
+                       and (lvl == -1).all() and (slot == 0).all()
+                       and (pay == -1).all())
+    empty = SimCacheNetwork(levels=[], h_repo=h_repo, sharded=True,
+                            mesh=make_lookup_mesh(8))
+    reset_launch_counts()
+    repo = empty.lookup(q0)
+    torch.cuda.synchronize()
+    repo_launches = launch_counts()["fused_lookup"]
+    edges = dict(
+        five_keys_bitwise_fused=bitwise_equal(torch, edge,
+                                              small.lookup(q0)),
+        five_keys_launches=edge_launches, padding_chunks_ok=pad_ok,
+        no_keys_repository=bool((repo.cost == h_repo).all()
+                                and (repo.level == -1).all()),
+        no_keys_launches=repo_launches)
+
+    # compress's 10⁶ keys at n = 8
+    cnet, cq, cexact = plane
+    n = SHARD_COMPRESS
+    snet = dataclasses.replace(cnet, sharded=True, mesh=make_lookup_mesh(n))
+    snet.sharded_layout(n)
+    builds = {}
+    for name, fn in (("lsh_s", lambda: snet._tables_for(
+                          cnet.candidate_policy, n)),
+                     ("kmeans_s", lambda: snet._tables_for(KMeansPolicy(),
+                                                           n)),
+                     ("quant_rows_s", lambda: snet._quant_rows(n))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        builds[name] = time.perf_counter() - t
+    compress = {}
+    for name, flags in (("exact", {}),) + COMPRESS_RUNS:
+        c0, r0 = snet.rescan_calls, snet.rescan_queries
+        reset_launch_counts()
+        got = snet.lookup(cq, **flags)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches += counts["fused_lookup"]
+        rescans = snet.rescan_calls - c0
+        compress[name] = dict(
+            bitwise_equal_exact=bitwise_equal(torch, got, cexact),
+            fused_lookup_launches=counts["fused_lookup"],
+            launches_expected=n * (1 + rescans), rescan_calls=rescans,
+            rescanned_share=(snet.rescan_queries - r0) / cq.shape[0],
+            ms=cuda_ms(torch, lambda: snet.lookup(cq, **flags), 3))
+    del snet
+    res = dict(keys=sum(BIGCACHE_SLOTS), batches=len(queries),
+               batch=q0.shape[0], runs=runs, fused_ms=fused_ms,
+               fused_device_ms=fused_dev, host_ops_n8=host,
+               shard_local_hold=dict(
+                   n=8, ok=hold_ok, max_abs_err=max(
+                       x["max_abs_err"] for x in held),
+                   tol_max=max(x["tol_max"] for x in held),
+                   index_near_tie=sum(x["index_near_tie"] for x in held)),
+               edges=edges,
+               compress=dict(keys=COMPRESS_KEYS, dim=COMPRESS_DIM,
+                             queries=cq.shape[0], n_shards=n,
+                             table_builds=builds, runs=compress),
+               phase_s=time.perf_counter() - t0)
+    log("sharded_lookup", **res)
+    every = list(runs.values()) + list(compress.values())
+    checks = [all(r["bitwise_equal_fused"] for r in runs.values()),
+              all(r["bitwise_equal_exact"] for r in compress.values()),
+              all(r["fused_lookup_launches"] == r["launches_expected"]
+                  for r in every),
+              hold_ok, edges["five_keys_bitwise_fused"],
+              edges["five_keys_launches"] == 8, pad_ok,
+              edges["no_keys_repository"], edges["no_keys_launches"] == 0]
+    if not all(checks):
+        raise RuntimeError(f"sharded_lookup phase failed its checks: "
+                           f"{checks}")
+    return dict(launches=launches, hold=res["shard_local_hold"])
+
+
+def phase_sharded_control(torch, cat, dem) -> dict:
+    """Item 11's control plane on one card, each call's launches counted
+    alone: the candidate-sharded gain oracle (kernel C once per shard and
+    group of 8 caches) at the stream's catalog (R = O = 20,000, D 100,
+    the engine's hierarchy, J 3) at n = 4, and on the ``scenario`` net (I
+    4, J 37, 5 groups) at n = 3, each bitwise the unsharded columns; GREEDY
+    on a 4-shard streaming ``DeviceInstance`` bitwise the unsharded
+    allocation; the best-two tables at 10⁵ objects and K 448 at n = 4,
+    and a ``best_two_delta`` forced into its (sharded) full rebuild,
+    bitwise; the sharded and unsharded calls timed side by side."""
+    from repro_torch.core import catalog as catalog_api
+    from repro_torch.core import demand as demand_api
+    from repro_torch.core import scenarios, topology
+    from repro_torch.core.catalog import Catalog
+    from repro_torch.core.objective import DeviceInstance, Instance
+    from repro_torch.core.placement import device_greedy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_lookup_mesh
+    t0 = time.perf_counter()
+    hier = topology.tpu_hierarchy(64, 128, 256, 15.0, 150.0, 1000.0)
+    scat = catalog_api.embedding_catalog(n=20_000, dim=100, seed=1)
+    sinst = Instance(net=hier, cat=scat,
+                     dem=demand_api.zipf(scat, alpha=1.0, seed=1))
+    sc = scenarios.scenario("isp", cache_budget=SCENARIO_BUDGET,
+                            placement="degree", n_ingress=4, seed=0)
+    coords, _, cat0 = rescaled_catalog(sc.net, **SCENARIO_CATALOG)
+    scen = Instance(net=sc.net, cat=Catalog(coords=coords, metric="l2",
+                                            gamma=1.0),
+                    dem=demand_api.zipf(cat0, alpha=1.0,
+                                        n_ingress=sc.net.n_ingress, seed=1))
+    launches, gains = 0, {}
+    for name, inst, n in (("stream", sinst, SHARD_GAINS),
+                          ("scenario", scen, SHARD_SCENARIO)):
+        d = DeviceInstance.from_instance(inst, materialize_ca=False)
+        ds = DeviceInstance.from_instance(inst, mesh=make_lookup_mesh(n),
+                                          axes=("data",),
+                                          materialize_ca=False)
+        cur = d.initial_costs()
+        want = d.gains(cur)
+        torch.cuda.synchronize()
+        reset_launch_counts()                     # the sharded call
+        got = ds.gains(cur)
+        torch.cuda.synchronize()
+        c = launch_counts()["placement_gains"]
+        launches += c
+        J = inst.net.n_caches
+        gains[name] = dict(
+            R=inst.cat.n, D=inst.cat.dim, I=inst.net.n_ingress, J=J,
+            n_shards=n, launches=c, launches_expected=n * -(-J // 8),
+            bitwise_equal=bool(torch.equal(got.view(torch.int32),
+                                           want.view(torch.int32))),
+            ms=cuda_ms(torch, lambda: ds.gains(cur), 3),
+            unsharded_ms=cuda_ms(torch, lambda: d.gains(cur), 3))
+        if name == "stream":
+            reset_launch_counts()                 # GREEDY, sharded
+            t = time.perf_counter()
+            slots_s = device_greedy(ds)
+            greedy_s = time.perf_counter() - t
+            greedy_c = launch_counts()["placement_gains"]
+            launches += greedy_c
+            t = time.perf_counter()
+            slots_u = device_greedy(d)
+            greedy_u = time.perf_counter() - t
+            greedy = dict(bitwise_equal=bool(np.array_equal(slots_s,
+                                                            slots_u)),
+                          seconds=greedy_s, unsharded_seconds=greedy_u,
+                          kernel_c_launches=greedy_c)
+        del d, ds, cur, want, got
+
+    # the best-two tables at 10⁵ objects, K 448
+    inst = Instance(net=hier, cat=cat, dem=dem)
+    kw = dict(materialize_ca=False)
+    d = DeviceInstance.from_instance(inst, **kw)
+    ds = DeviceInstance.from_instance(inst, mesh=make_lookup_mesh(
+        SHARD_GAINS), axes=("data",), **kw)
+    rng = np.random.default_rng(11)
+    slots = rng.choice(cat.n, hier.total_slots, replace=False)
+    want = d.best_two_tables(slots)
+    got = ds.best_two_tables(slots)
+    tables_equal = _same_result(torch, got, want)
+    new = slots.copy()
+    ys = np.sort(rng.choice(hier.total_slots, 64, replace=False))
+    new[ys] = rng.choice(cat.n, 64)
+    rebuilt = ds.best_two_delta(*got, new, ys, cap=1)
+    delta_equal = _same_result(torch, rebuilt, d.best_two_tables(new))
+    tables = dict(objects=cat.n, slots=hier.total_slots,
+                  n_shards=SHARD_GAINS, bitwise_equal=tables_equal,
+                  delta_rebuild_bitwise_equal=delta_equal,
+                  ms=cuda_ms(torch, lambda: ds.best_two_tables(slots), 5),
+                  unsharded_ms=cuda_ms(
+                      torch, lambda: d.best_two_tables(slots), 5))
+    res = dict(gains=gains, greedy=greedy, tables=tables,
+               phase_s=time.perf_counter() - t0)
+    log("sharded_control", **res)
+    checks = [all(g["bitwise_equal"] and g["launches"]
+                  == g["launches_expected"] for g in gains.values()),
+              greedy["bitwise_equal"],
+              greedy["kernel_c_launches"] == SHARD_GAINS,
+              tables_equal, delta_equal]
+    if not all(checks):
+        raise RuntimeError(f"sharded_control phase failed its checks: "
+                           f"{checks}")
+    return dict(launches=launches)
+
+
+def tail_split(run) -> dict:
+    """The warm run's batch latencies split by whether the background
+    solve was running when the batch was served, with the ten slowest
+    overlapped batches; then a quiet rerun of 4,096 requests on the same
+    engine with no refresh started (after every stat of the phase was
+    read). It says what the warm tail overlaps."""
+    lat = np.asarray(run["warm"].batch_latencies_ms)
+    over = np.asarray(run["overlap"], bool)
+
+    def pct(x):
+        return dict(batches=int(x.size),
+                    p50_ms=float(np.percentile(x, 50)) if x.size else None,
+                    p95_ms=float(np.percentile(x, 95)) if x.size else None)
+    drv = run["drv"]
+    drv.refresh_every = 0
+    quiet = drv.run(4096)
+    return dict(overlapped=pct(lat[over]), alone=pct(lat[~over]),
+                slowest_overlapped_ms=sorted(lat[over].tolist())[-10:],
+                quiet=dict(batches=quiet.n_batches, p50_ms=quiet.p50_ms,
+                           p95_ms=quiet.p95_ms, p99_ms=quiet.p99_ms,
+                           refreshes_started=quiet.refreshes_started))
+
+
+def phase_sharded_engine(torch, params, stream) -> dict:
+    """The ``stream`` configuration (:func:`stream_run`) with
+    ``EngineConfig.sharded`` on a 4-shard lookup mesh, on the same
+    weights: the allocation the refresh installs and the one left after
+    the drain bitwise the ``stream`` phase's, warm hit rate and mean cost
+    equal to it, kernel A launched n times a served lookup and kernel C n
+    times a synchronous GREEDY seed (the background refresh solves
+    unsharded, as the reference's does: once a seed); batch percentiles
+    beside the ``stream`` phase's, the cost of the shard loop on one
+    card."""
+    from repro_torch.launch.mesh import make_lookup_mesh
+    n = SHARD_ENGINE
+    run = stream_run(torch, params, mesh=make_lookup_mesh(n))
+    eng, warm, counts = run["eng"], run["warm"], run["counts"]
+    ref, w, w0 = stream["eng"], eng.stats, stream["eng"].stats
+    lookups = warm.n_batches                      # one a warm batch
+    res = dict(
+        n_shards=n, sharded=eng.simcache.sharded,
+        refreshed_slots_equal=bool(np.array_equal(run["refreshed"],
+                                                  stream["refreshed"])),
+        final_slots_equal=bool(np.array_equal(eng.placement.slots,
+                                              ref.placement.slots)),
+        predicted_cost=run["pred"], stream_predicted_cost=stream["pred"],
+        warm=dict(hit_rate=w.hit_rate, mean_cost=w.mean_cost,
+                  p50_ms=warm.p50_ms, p95_ms=warm.p95_ms,
+                  req_per_s=warm.requests_per_s, batches=warm.n_batches,
+                  refreshes_started=warm.refreshes_started,
+                  swaps_in_run=warm.swaps),
+        stream_warm=dict(hit_rate=w0.hit_rate, mean_cost=w0.mean_cost,
+                         p50_ms=stream["warm"].p50_ms,
+                         p95_ms=stream["warm"].p95_ms,
+                         batches=stream["warm"].n_batches),
+        cold_p50_ms=run["cold"].p50_ms,
+        stream_cold_p50_ms=stream["cold"].p50_ms,
+        refresh_s=run["refresh_s"], drain_s=run["drain_s"],
+        launches=counts, fused_lookup_expected=n * lookups,
+        placement_gains_expected=n + warm.refreshes_started,
+        phase_s=run["phase_s"])
+    checks = [res["sharded"], res["refreshed_slots_equal"],
+              res["final_slots_equal"], w.hit_rate == w0.hit_rate,
+              w.mean_cost == w0.mean_cost,
+              counts["fused_lookup"] == n * lookups,
+              counts["placement_gains"] == n + warm.refreshes_started,
+              counts["flash_attention"] > 0, not eng.refresh_in_flight]
+    res["tail"] = {name: tail_split(r) for name, r in
+                   (("sharded", run), ("stream", stream))}
+    log("sharded_engine", **res)
+    if not all(checks):
+        raise RuntimeError(f"sharded_engine phase failed its checks: "
+                           f"{checks}")
+    return counts
 
 
 HITRATE_REQUESTS = 40_000
@@ -2744,6 +3180,8 @@ def main() -> int:
     phase_stable(torch, cat.coords)
     big = phase_bigcache(torch, cat, dem)
     compress = phase_compress(torch, big)
+    sharded_lookup = phase_sharded_lookup(torch, big,
+                                          compress.pop("plane"))
     del big
     f = phase_duel(torch, cat, dem, clock_hz)
     counts, params, cascade = phase_engine(torch, cat, dem)
@@ -2753,10 +3191,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_warm_1e6(torch)
     params = phase_prefill(torch)
-    stream_counts = phase_stream(torch, params)
+    stream_counts, stream = phase_stream(torch, params)
+    sharded_engine = phase_sharded_engine(torch, params, stream)
+    del stream
     duel_counts = phase_duel_engine(torch, params)
     scenario_counts = phase_scenario(torch, params)
     lb_gains = phase_gain_quant(torch)
+    sharded_control = phase_sharded_control(torch, cat, dem)
     cand_ca = phase_hitrate(torch)
     gate_counts = phase_gate(torch, params)
     del params
@@ -2797,6 +3238,14 @@ def main() -> int:
             kernels[-1]["launches_compress"] = compress["launches"]
         if r["name"] == "placement_gains":       # GREEDY on the scenario
             kernels[-1]["launches_scenario"] = scenario_counts["greedy"]
+            kernels[-1]["launches_sharded"] = dict(
+                control=sharded_control["launches"],
+                engine=sharded_engine["placement_gains"])
+        if r["name"] == "fused_lookup":          # item 11's shard loop
+            kernels[-1]["launches_sharded"] = dict(
+                lookup=sharded_lookup["launches"],
+                engine=sharded_engine["fused_lookup"])
+            kernels[-1]["shard_local_hold"] = sharded_lookup["hold"]
         if r["name"] == "flash_attention":       # the strategy engines
             kernels[-1]["launches_scenario"] = \
                 scenario_counts["flash_attention"]

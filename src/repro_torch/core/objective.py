@@ -295,6 +295,39 @@ def fold_best_two(b1, a1, b2, h_repo):
     return best1, arg1, best2
 
 
+def sharded_best_two_tables(coords, ca, slots, slot_cache, H, mesh,
+                            axes: tuple, metric: str, gamma: float,
+                            has_ca: bool):
+    """Pre-fold (b1, a1, b2, a2) tables with the request axis sharded
+    over ``axes`` of ``mesh``: the rows (C_a rows, or the request
+    coordinates) cut into the reference's contiguous balanced chunks of
+    ⌈R/n⌉ rows, each chunk's tables by the per-row kernel on the whole
+    slot keys, in turn, concatenated. The reference's zero padding rows
+    are cut off at its end, so they are not built here. Rows are
+    independent, so the tables are bitwise the unsharded ones at every
+    shard count."""
+    from repro_torch.kernels.knn.ops import mesh_axes_size
+    n = mesh_axes_size(mesh, tuple(axes))
+    rows = ca if has_ca else coords
+    n_obj = rows.shape[0]
+    keys = None if has_ca else coords[slots.clamp_min(0)]
+    S = -(-n_obj // n)
+    starts = range(0, n_obj, S) if S else [0]    # shards with real rows
+    parts = [_best_two_rows_pre(rows[a:a + S], keys, slots, slot_cache, H,
+                                metric, gamma, has_ca) for a in starts]
+    return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(4))
+
+
+def sharded_best_two(coords, ca, slots, slot_cache, H, h_repo, mesh,
+                     axes: tuple, metric: str, gamma: float, has_ca: bool):
+    """Serving tables (best1, arg1, best2) with the request axis sharded:
+    :func:`sharded_best_two_tables` folded with the repository."""
+    b1, a1, b2, _ = sharded_best_two_tables(coords, ca, slots, slot_cache,
+                                            H, mesh, axes, metric, gamma,
+                                            has_ca)
+    return fold_best_two(b1, a1, b2, h_repo)
+
+
 def default_delta_cap(n_obj: int) -> int:
     """Dirty-row budget of :func:`best_two_delta`; past it the whole
     table is rebuilt."""
@@ -302,7 +335,8 @@ def default_delta_cap(n_obj: int) -> int:
 
 
 def best_two_delta(coords, ca, b1, a1, b2, a2, slots_new, ys, slot_cache,
-                   H, metric: str, gamma: float, has_ca: bool, cap: int):
+                   H, metric: str, gamma: float, has_ca: bool, cap: int,
+                   mesh=None, axes: tuple = ()):
     """Incremental pre-fold best-two refresh after slot writes.
 
     ``ys`` is a (P,) ascending vector of the slot indices whose occupant
@@ -311,7 +345,9 @@ def best_two_delta(coords, ca, b1, a1, b2, a2, slots_new, ys, slot_cache,
     a changed slot can need more than a two-candidate insertion; those
     dirty rows are recomputed by the full per-row kernel on the canonical
     shape-stable C_a, so the result is bitwise the full rebuild's. With
-    more than ``cap`` dirty rows the whole table is rebuilt.
+    more than ``cap`` dirty rows the whole table is rebuilt, request-axis
+    sharded (:func:`sharded_best_two_tables`) when ``mesh`` is given; the
+    dirty-row recompute is never sharded, as in the reference.
     """
     K = int(slot_cache.shape[0])
     R = b1.shape[1]
@@ -323,6 +359,10 @@ def best_two_delta(coords, ca, b1, a1, b2, a2, slots_new, ys, slot_cache,
     hit2 = ((a2[:, :, None] == ys[None, None, :]) & valid_y).any(-1)
     dirty_r = (hit1 | hit2).any(dim=0)                         # (R,)
     if int(dirty_r.sum()) > cap:
+        if mesh is not None:
+            return sharded_best_two_tables(coords, ca, slots_new,
+                                           slot_cache, H, mesh, axes,
+                                           metric, gamma, has_ca)
         return _best_two_rows_pre(rows_all, keys_new, slots_new, slot_cache,
                                   H, metric, gamma, has_ca)
 
@@ -369,6 +409,12 @@ class DeviceInstance:
     (full batched oracle, kernel C), :meth:`gain_at` (exact refresh of a
     candidate batch), :meth:`apply_pick` and the best-two tables.
     ``host`` keeps the originating NumPy instance.
+
+    With ``mesh`` and ``axes`` (a launch/mesh.py mesh, the data plane's
+    shard axes) resolving to more than one shard, the oracle shards its
+    candidate axis and the best-two tables their request axis, each
+    shard in turn on this instance's device; every value is bitwise the
+    unsharded one.
     """
     host: Instance
     coords: torch.Tensor               # (O, D) f32
@@ -379,15 +425,18 @@ class DeviceInstance:
     ca: torch.Tensor | None            # (O, O) materialized C_a, or None
     metric: str
     gamma: float
+    mesh: object = None
+    axes: tuple = ()
 
     @classmethod
-    def from_instance(cls, inst: Instance,
+    def from_instance(cls, inst: Instance, mesh=None, axes: tuple = (),
                       materialize_ca: bool | None = None,
                       device: str | torch.device | None = None
                       ) -> "DeviceInstance":
         """Upload ``inst`` to ``device`` (CUDA unless named). C_a is
         materialized for explicit matrices and catalogs up to 4096
-        objects unless ``materialize_ca`` says otherwise."""
+        objects unless ``materialize_ca`` says otherwise. ``mesh`` and
+        ``axes`` shard the control plane (see the class)."""
         dev = resolve_device(device)
         if materialize_ca is None:
             materialize_ca = (inst.ca_matrix is not None
@@ -405,7 +454,8 @@ class DeviceInstance:
                                        device=dev),
             ca=(torch.as_tensor(np.asarray(inst.ca), **f32)
                 if materialize_ca else None),
-            metric=inst.cat.metric, gamma=inst.cat.gamma)
+            metric=inst.cat.metric, gamma=inst.cat.gamma, mesh=mesh,
+            axes=tuple(axes))
 
     # ----------------------------------------------------------- shapes
     @property
@@ -420,6 +470,19 @@ class DeviceInstance:
     def n_caches(self) -> int:
         return self.H.shape[1]
 
+    @property
+    def n_shards(self) -> int:
+        if self.mesh is None or not self.axes:
+            return 1
+        from repro_torch.kernels.knn.ops import mesh_axes_size
+        return mesh_axes_size(self.mesh, self.axes)
+
+    def _shard_args(self) -> tuple:
+        """(mesh, axes) when the instance shards, else (None, ())."""
+        if self.n_shards > 1:
+            return self.mesh, self.axes
+        return None, ()
+
     def _ca_args(self):
         return self.coords, self.ca, self.metric, self.gamma, \
             self.ca is not None
@@ -432,16 +495,23 @@ class DeviceInstance:
 
     def gains(self, cur: torch.Tensor,
               quantize: bool = False) -> torch.Tensor:
-        """(O, J) marginal gains of every candidate — one oracle launch.
-        With ``quantize`` the oracle runs the int8 lower-bound distance
-        pass and returns admissible *upper* bounds on every gain: valid
-        lazy priorities, not exact values (``device_greedy`` re-scores
-        before it accepts)."""
+        """(O, J) marginal gains of every candidate — one oracle call
+        (one per candidate shard when the instance shards). With
+        ``quantize`` the oracle runs the int8 lower-bound distance pass
+        and returns admissible *upper* bounds on every gain: valid lazy
+        priorities, not exact values (``device_greedy`` re-scores before
+        it accepts)."""
         from repro_torch.kernels.knn import (placement_gains,
-                                             placement_gains_matrix)
+                                             placement_gains_matrix,
+                                             sharded_placement_gains)
         if self.ca is not None:
             return placement_gains_matrix(self.ca, self.lam, cur, self.H,
                                           quantize=quantize)
+        mesh, axes = self._shard_args()
+        if mesh is not None:
+            return sharded_placement_gains(
+                self.coords, self.coords, self.lam, cur, self.H, mesh, axes,
+                metric=self.metric, gamma=self.gamma, quantize=quantize)
         return placement_gains(self.coords, self.coords, self.lam, cur,
                                self.H, metric=self.metric, gamma=self.gamma,
                                quantize=quantize)
@@ -458,10 +528,16 @@ class DeviceInstance:
 
     def best_two_tables(self, slots) -> tuple:
         """Pre-fold (b1, a1, b2, a2) tables over the slot axis — the
-        carried state of the incremental refresh."""
+        carried state of the incremental refresh; request-axis sharded
+        when the instance shards."""
         coords, ca, metric, gamma, has_ca = self._ca_args()
         slots = torch.as_tensor(slots, dtype=torch.int64,
                                 device=self.device)
+        mesh, axes = self._shard_args()
+        if mesh is not None:
+            return sharded_best_two_tables(coords, ca, slots,
+                                           self.slot_cache, self.H, mesh,
+                                           axes, metric, gamma, has_ca)
         rows = ca if has_ca else coords
         keys = None if has_ca else coords[slots.clamp_min(0)]
         return _best_two_rows_pre(rows, keys, slots, self.slot_cache,
@@ -475,15 +551,18 @@ class DeviceInstance:
     def best_two_delta(self, b1, a1, b2, a2, slots_new, ys,
                        cap: int | None = None) -> tuple:
         """Incremental pre-fold refresh after writing slots ``ys``;
-        bitwise :meth:`best_two_tables` on the new layout."""
+        bitwise :meth:`best_two_tables` on the new layout (its full
+        rebuild sharded when the instance shards)."""
         coords, ca, metric, gamma, has_ca = self._ca_args()
         if cap is None:
             cap = default_delta_cap(self.n_objects)
         i64 = dict(dtype=torch.int64, device=self.device)
+        mesh, axes = self._shard_args()
         return best_two_delta(coords, ca, b1, a1, b2, a2,
                               torch.as_tensor(slots_new, **i64),
                               torch.as_tensor(ys, **i64), self.slot_cache,
-                              self.H, metric, gamma, has_ca, cap=cap)
+                              self.H, metric, gamma, has_ca, cap=cap,
+                              mesh=mesh, axes=axes)
 
     def total_cost(self, slots) -> float:
         """C(A) evaluated on the device (f32) — the only total-cost path

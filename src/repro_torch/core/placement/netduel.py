@@ -40,9 +40,11 @@ contract between the host policy and the device scan:
 
 A promotion re-arms the tables through ``DeviceInstance.best_two_delta``
 when at most ``PROMOTE_CAP`` slots promote at once, else by a full
-rebuild (``best_two_tables``); both give the full rebuild's bits. The
-reference's request-axis sharding of that re-arm is ROADMAP queue 1
-item 11.
+rebuild (``best_two_tables``); both give the full rebuild's bits. On a
+``DeviceInstance`` that shards (``mesh``, ``axes``) the full rebuild
+shards the request axis (``objective.sharded_best_two_tables``), as the
+reference's does; the scan itself and the dirty-row recompute stay
+unsharded, as there.
 """
 from __future__ import annotations
 

@@ -26,8 +26,19 @@ makes the result bit-identical to the exact lookup by construction; the
 network counts those re-scans (``rescan_calls``, ``rescan_queries``).
 Tables and the int8 image are memoized next to the layout; unlike the
 plain fused path, a pruned or quantized lookup against mutated but not
-invalidated ``levels`` raises. The sharded lookup is a later slice of the
-port (ROADMAP queue 1, item 11).
+invalidated ``levels`` raises.
+
+``sharded=True`` (with a ``mesh``, launch/mesh.py) is the sharded
+variant of the fused path: :meth:`sharded_layout` pads the segmented
+tensor so that the key axis divides the shard count, the key axis is
+cut into contiguous balanced chunks along ``shard_axes``, each chunk is
+scanned on its own (kernel A with ``fold_repo=False``, one launch per
+shard, in turn on the keys' device), and the per-shard minima are
+reduced lexicographically with the repository folded once, bitwise the
+fused lookup. Pruned and quantized lookups shard the same way, with
+per-shard candidate tables (``policy.for_shard(s)``) and the int8 image
+of the padded layout; their verifier re-scans through the sharded path.
+:meth:`invalidate_layout` drops the sharded layouts with the rest.
 """
 from __future__ import annotations
 
@@ -40,9 +51,14 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.kernels import quant
 from repro_torch.kernels.knn import (DEFAULT_TOP_T, default_policy,
-                                     fused_lookup, nearest_approximizer,
+                                     fused_lookup, mesh_axes_size,
+                                     nearest_approximizer, pad_to_shards,
                                      pruned_fused_lookup,
-                                     quantized_fused_lookup)
+                                     quantized_fused_lookup, shard_meta,
+                                     sharded_fused_lookup,
+                                     sharded_pruned_fused_lookup,
+                                     sharded_quantized_fused_lookup,
+                                     stack_shard_tables)
 
 REPO_LEVEL = -1
 
@@ -72,12 +88,20 @@ class LookupResult:
 
 @dataclasses.dataclass
 class SimCacheNetwork:
-    """A chain of similarity caches in front of a repository (model)."""
+    """A chain of similarity caches in front of a repository (model).
+
+    ``sharded=True`` serves lookups through the sharded fused path:
+    ``mesh`` must be set, and the key axis is cut over ``shard_axes``
+    (default: every mesh axis, in order).
+    """
     levels: list[CacheLevel]
     h_repo: float
     metric: str = "l2"
     gamma: float = 1.0
     fused: bool = True
+    sharded: bool = False
+    mesh: object | None = None
+    shard_axes: tuple[str, ...] | None = None
     # CandidatePolicy override, used only when its ``kind`` matches the
     # ``prune=`` argument of lookup(); other kinds fall back to
     # kernels.knn.lsh.default_policy
@@ -86,6 +110,8 @@ class SimCacheNetwork:
         default=None, init=False, repr=False, compare=False)
     _layout_fp: tuple | None = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    _sharded_layout: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
     _tables: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
     # verify=True's exact re-scans: launches of the exact path, queries
@@ -94,13 +120,19 @@ class SimCacheNetwork:
     rescan_queries: int = dataclasses.field(default=0, init=False,
                                             compare=False)
 
+    def __post_init__(self):
+        if self.sharded and self.mesh is None:
+            raise ValueError("sharded=True requires a mesh")
+
     @classmethod
     def from_placement(cls, coords: np.ndarray, slots: np.ndarray,
                        slot_cache: np.ndarray, hs: Sequence[float],
                        h_repo: float, metric: str = "l2",
                        gamma: float = 1.0, fused: bool = True,
                        device: str | torch.device | None = None,
-                       candidate_policy: object | None = None
+                       candidate_policy: object | None = None,
+                       sharded: bool = False, mesh: object | None = None,
+                       shard_axes: tuple[str, ...] | None = None
                        ) -> "SimCacheNetwork":
         """Build the runtime network from a placement-algorithm output on
         ``device`` (CUDA unless named). ``slots``/``slot_cache`` are the
@@ -122,8 +154,8 @@ class SimCacheNetwork:
                                                             device=dev),
                                      h=float(h)))
         return cls(levels=levels, h_repo=float(h_repo), metric=metric,
-                   gamma=gamma, fused=fused,
-                   candidate_policy=candidate_policy)
+                   gamma=gamma, fused=fused, sharded=sharded, mesh=mesh,
+                   shard_axes=shard_axes, candidate_policy=candidate_policy)
 
     # ------------------------------------------------------- fused layout
     def fused_layout(self) -> tuple[torch.Tensor, torch.Tensor,
@@ -162,11 +194,47 @@ class SimCacheNetwork:
             self._layout_fp = self._levels_fingerprint()
         return self._layout
 
+    # ----------------------------------------------------- sharded layout
+    def resolved_shard_axes(self) -> tuple[str, ...]:
+        """Mesh axes the key axis shards over (default: all, in order)."""
+        if self.shard_axes is not None:
+            return tuple(self.shard_axes)
+        return tuple(self.mesh.axis_names)
+
+    def n_shards(self) -> int:
+        return mesh_axes_size(self.mesh, self.resolved_shard_axes())
+
+    def sharded_layout(self, n_shards: int) -> tuple[torch.Tensor,
+                                                     torch.Tensor,
+                                                     torch.Tensor]:
+        """The fused layout padded so that the key axis divides
+        ``n_shards`` (ref.pad_to_shards: all-zero keys with valid 0 and
+        payload −1, masked by kernel A), so shards are equal contiguous
+        chunks of the level-ordered concatenation. Memoized per shard
+        count, under the same :meth:`invalidate_layout` contract."""
+        return self._sharded(n_shards)[:3]
+
+    def sharded_meta(self, n_shards: int) -> torch.Tensor:
+        """:meth:`sharded_layout`'s meta regrouped per shard, (n, 4,
+        K/n) (ops.shard_meta), memoized with it: what the sharded
+        lookups take, so a lookup only slices it."""
+        return self._sharded(n_shards)[3]
+
+    def _sharded(self, n_shards: int) -> tuple:
+        if n_shards not in self._sharded_layout:
+            keys, h_key, meta = pad_to_shards(*self.fused_layout(),
+                                              n_shards)
+            self._sharded_layout[n_shards] = (
+                keys, h_key, meta, shard_meta(meta, n_shards))
+        return self._sharded_layout[n_shards]
+
     def invalidate_layout(self) -> None:
-        """Drop the memoized fused layout (and the candidate tables and
-        int8 image built from it) after mutating ``levels``."""
+        """Drop the memoized fused and sharded layouts (and the candidate
+        tables and int8 images built from them) after mutating
+        ``levels``."""
         self._layout = None
         self._layout_fp = None
+        self._sharded_layout = {}
         self._tables = {}
 
     def _levels_fingerprint(self) -> tuple:
@@ -204,28 +272,45 @@ class SimCacheNetwork:
             return pol
         return default_policy(prune)
 
-    def _tables_for(self, policy) -> tuple[torch.Tensor, torch.Tensor,
-                                           int]:
+    def _tables_for(self, policy, n_shards: int = 0
+                    ) -> tuple[torch.Tensor, torch.Tensor, int]:
         """Memoized (proj, buckets, n_probes) of one policy, built on the
-        host over the fused layout and moved to its device; dropped by
+        host and moved to the keys' device: over the fused layout
+        (``n_shards == 0``), or per contiguous chunk of the sharded
+        layout from ``policy.for_shard(s)``, stacked on a leading shard
+        axis (lsh.stack_shard_tables). Dropped by
         :meth:`invalidate_layout`."""
-        memo_key = (policy, 0)            # 0: the unsharded layout
+        memo_key = (policy, n_shards)
         if memo_key not in self._tables:
-            keys, _, meta = self.fused_layout()
-            t = policy.build(keys.cpu().numpy(),
-                             meta[3].cpu().numpy() > 0)
+            if n_shards == 0:
+                keys, _, meta = self.fused_layout()
+                t = policy.build(keys.cpu().numpy(),
+                                 meta[3].cpu().numpy() > 0)
+                proj, buckets, n_probes = t.proj, t.buckets, t.n_probes
+            else:
+                keys, _, meta = self.sharded_layout(n_shards)
+                keys_np = keys.cpu().numpy()
+                valid_np = meta[3].cpu().numpy() > 0
+                S = keys_np.shape[0] // n_shards
+                proj, buckets, n_probes = stack_shard_tables([
+                    policy.for_shard(s).build(keys_np[s * S:(s + 1) * S],
+                                              valid_np[s * S:(s + 1) * S])
+                    for s in range(n_shards)])
             self._tables[memo_key] = (
-                torch.as_tensor(t.proj, device=keys.device),
-                torch.as_tensor(t.buckets, device=keys.device), t.n_probes)
+                torch.as_tensor(proj, device=keys.device),
+                torch.as_tensor(buckets, device=keys.device), n_probes)
         return self._tables[memo_key]
 
-    def _quant_rows(self) -> quant.QuantizedRows:
-        """Memoized int8 image (quant.QuantizedRows) of the fused key
-        rows, dropped with the layout by :meth:`invalidate_layout`."""
-        memo_key = ("quant_rows", 0)
+    def _quant_rows(self, n_shards: int = 0) -> quant.QuantizedRows:
+        """Memoized int8 image (quant.QuantizedRows) of the fused
+        (``n_shards == 0``) or sharded key rows, dropped with the layouts
+        by :meth:`invalidate_layout`. All-zero padding rows quantize to
+        scale 0 and stay masked by their valid flag."""
+        memo_key = ("quant_rows", n_shards)
         if memo_key not in self._tables:
-            self._tables[memo_key] = quant.quantize_rows(
-                self.fused_layout()[0], self.metric)
+            keys = (self.fused_layout() if n_shards == 0
+                    else self.sharded_layout(n_shards))[0]
+            self._tables[memo_key] = quant.quantize_rows(keys, self.metric)
         return self._tables[memo_key]
 
     # ------------------------------------------------------------ lookup
@@ -234,6 +319,8 @@ class SimCacheNetwork:
                top_t: int | None = None) -> LookupResult:
         """Serve a batch of query embeddings (B, d) per eq. (1).
 
+        Sharded (``sharded=True`` and a mesh): one launch of kernel A per
+        key shard and the cross-shard reduction, bitwise the fused path.
         Fused (default): one launch of kernel A over every level's keys.
         Looped (``fused=False``): one launch of kernel B per level and a
         central argmin, the differential twin.
@@ -241,14 +328,17 @@ class SimCacheNetwork:
         front of the fused scan. Quantized (``quantize=True``): the int8
         lower-bound first pass keeps ``top_t`` candidates per query (64
         by default) for the exact rescore; it composes with ``prune``
-        (LSH gather first, quantized cut second). With ``verify=True``
-        either is bit-identical to the exact fused lookup.
+        (LSH gather first, quantized cut second); both shard with
+        ``sharded``. With ``verify=True`` either is bit-identical to the
+        exact fused lookup.
         """
         if prune is not None:
             return self._lookup_pruned(queries, prune, verify,
                                        quantize=quantize, top_t=top_t)
         if quantize:
             return self._lookup_quantized(queries, verify, top_t)
+        if self.sharded:
+            return self._lookup_sharded(queries)
         if self.fused:
             return self._lookup_fused(queries)
         return self._lookup_looped(queries)
@@ -261,17 +351,36 @@ class SimCacheNetwork:
         return LookupResult(level=lvl, slot=slot, payload=pay, cost=cost,
                             approx_cost=ca, hit=lvl != REPO_LEVEL)
 
+    def _lookup_sharded(self, queries: torch.Tensor) -> LookupResult:
+        if self.fused_layout()[0].shape[0] == 0:   # no keys → repository
+            return self._lookup_fused(queries)
+        n = self.n_shards()
+        keys, h_key, _ = self.sharded_layout(n)
+        cost, ca, lvl, slot, pay = sharded_fused_lookup(
+            queries, keys, h_key, self.sharded_meta(n), self.mesh,
+            self.resolved_shard_axes(), metric=self.metric,
+            gamma=self.gamma, h_repo=self.h_repo, repo_level=REPO_LEVEL)
+        return LookupResult(level=lvl, slot=slot, payload=pay, cost=cost,
+                            approx_cost=ca, hit=lvl != REPO_LEVEL)
+
     def _lookup_quantized(self, queries: torch.Tensor, verify: bool,
                           top_t: int | None) -> LookupResult:
         self._check_layout_fresh()
-        keys, h_key, meta = self.fused_layout()
-        if keys.shape[0] == 0:                     # no keys → repository
+        if self.fused_layout()[0].shape[0] == 0:   # no keys → repository
             return self._lookup_fused(queries)
         tt = DEFAULT_TOP_T if top_t is None else int(top_t)
-        out = quantized_fused_lookup(
-            queries, keys, h_key, meta, self._quant_rows(), top_t=tt,
-            metric=self.metric, gamma=self.gamma, h_repo=self.h_repo,
-            repo_level=REPO_LEVEL)
+        common = dict(top_t=tt, metric=self.metric, gamma=self.gamma,
+                      h_repo=self.h_repo, repo_level=REPO_LEVEL)
+        if self.sharded:
+            n = self.n_shards()
+            keys, h_key, _ = self.sharded_layout(n)
+            out = sharded_quantized_fused_lookup(
+                queries, keys, h_key, self.sharded_meta(n),
+                self._quant_rows(n), self.mesh, self.resolved_shard_axes(),
+                **common)
+        else:
+            out = quantized_fused_lookup(
+                queries, *self.fused_layout(), self._quant_rows(), **common)
         return self._result(queries, out, verify)
 
     def _lookup_pruned(self, queries: torch.Tensor, prune: str,
@@ -279,16 +388,27 @@ class SimCacheNetwork:
                        top_t: int | None = None) -> LookupResult:
         policy = self._resolve_policy(prune)
         self._check_layout_fresh()
-        keys, h_key, meta = self.fused_layout()
-        if keys.shape[0] == 0:                     # no keys → repository
+        if self.fused_layout()[0].shape[0] == 0:   # no keys → repository
             return self._lookup_fused(queries)
         tt = DEFAULT_TOP_T if top_t is None else int(top_t)
-        proj, buckets, n_probes = self._tables_for(policy)
-        out = pruned_fused_lookup(
-            queries, keys, h_key, meta, proj, buckets, kind=policy.kind,
-            n_probes=n_probes, cap_union=policy.resolve_cap(keys.shape[0]),
-            metric=self.metric, gamma=self.gamma, h_repo=self.h_repo,
-            repo_level=REPO_LEVEL, quantize=quantize, top_t=tt)
+        common = dict(kind=policy.kind, metric=self.metric,
+                      gamma=self.gamma, h_repo=self.h_repo,
+                      repo_level=REPO_LEVEL, quantize=quantize, top_t=tt)
+        if self.sharded:
+            n = self.n_shards()
+            keys, h_key, _ = self.sharded_layout(n)
+            proj, buckets, n_probes = self._tables_for(policy, n)
+            out = sharded_pruned_fused_lookup(
+                queries, keys, h_key, self.sharded_meta(n), proj, buckets,
+                self.mesh, self.resolved_shard_axes(), n_probes=n_probes,
+                cap_union=policy.resolve_cap(keys.shape[0] // n), **common)
+        else:
+            keys, h_key, meta = self.fused_layout()
+            proj, buckets, n_probes = self._tables_for(policy)
+            out = pruned_fused_lookup(
+                queries, keys, h_key, meta, proj, buckets,
+                n_probes=n_probes,
+                cap_union=policy.resolve_cap(keys.shape[0]), **common)
         return self._result(queries, out, verify)
 
     def _result(self, queries: torch.Tensor, out: tuple,
@@ -305,7 +425,8 @@ class SimCacheNetwork:
         """The verifier: ``cost < bound`` proves a pruned or quantized
         winner exact (every un-scanned valid key costs ≥ bound); every
         other query, exact ties included (their break could prefer an
-        un-scanned lower index), re-scans through the exact fused path.
+        un-scanned lower index), re-scans through the exact fused path
+        (the sharded one on a sharded network).
         Only the flagged queries re-scan (a kernel row depends on its own
         query alone, so a sub-batch gives the full batch's rows), padded
         with query 0 to a power of two so that repeated calls see few
@@ -320,7 +441,8 @@ class SimCacheNetwork:
             m <<= 1
         m = min(m, queries.shape[0])
         pad_idx = torch.cat([idx, idx.new_zeros((m - n,))])
-        exact = self._lookup_fused(queries[pad_idx])
+        exact = (self._lookup_sharded if self.sharded
+                 else self._lookup_fused)(queries[pad_idx])
         self.rescan_calls += 1
         self.rescan_queries += n
 

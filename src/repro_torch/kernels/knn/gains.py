@@ -31,6 +31,10 @@ current per-(ingress, object) serving cost C(r, A). Counterpart of
 * :func:`placement_gains_matrix` — plain torch over an explicit C_a
   matrix, for instances that materialize it (``quantize=True`` bounds
   each C_a row from below by its int8 image).
+* :func:`sharded_placement_gains` — the oracle over a mesh
+  (launch/mesh.py): one :func:`placement_gains` per contiguous chunk of
+  the candidates, in turn, concatenated. A candidate's sums never see
+  the other candidates, so every column is the unsharded call's.
 
 Off-path +inf entries of H map to the finite ``H_SENTINEL`` (relu clamps
 them to zero gain; inf − inf would breed NaNs).
@@ -45,6 +49,7 @@ import torch
 from repro_torch.kernels import quant
 from repro_torch.kernels.build import LIBRARY, check, stream_ptr
 from repro_torch.kernels.knn.knn import _contig_f32, _metric_id
+from repro_torch.kernels.knn.ops import mesh_axes_size
 from repro_torch.kernels.knn.ref import _dense_ca
 
 DEFAULT_BO = 256
@@ -284,6 +289,32 @@ def placement_gains_matrix(ca: torch.Tensor, lam: torch.Tensor,
               - quant.ELEM_ERR * sc).clamp_min(0.0)
     return torch.cat([_fold_tile(ca[:, s:s + bo], lam, cur, h)
                       for s in range(0, ca.shape[1], bo)])
+
+
+def sharded_placement_gains(x: torch.Tensor, y: torch.Tensor,
+                            lam: torch.Tensor, cur: torch.Tensor,
+                            hreq: torch.Tensor, mesh, axes: tuple[str, ...],
+                            metric: str = "l2", gamma: float = 1.0,
+                            quantize: bool = False) -> torch.Tensor:
+    """Sharded gain oracle: one :func:`placement_gains` per candidate
+    shard, in turn. The shards are the reference's: ``y`` padded with
+    zero rows to a multiple of ``n · DEFAULT_BO`` (n the product of the
+    ``axes`` sizes of ``mesh``) and cut into n contiguous balanced chunks
+    of S rows. The padding is not built: its gains are cut off at the
+    end, so each shard runs on its real rows alone (a view), and a shard
+    of padding only runs nothing. Requests, rates and costs are whole in
+    every shard. On the card each shard is ⌈J/8⌉ launches of kernel C,
+    whose per-candidate sums do not depend on the candidate tiling; on
+    the CPU every shard starts on a multiple of ``DEFAULT_BO``, so the
+    plain version's candidate tiles are the unsharded call's. Either way
+    every column is bitwise the unsharded one. Returns (O, J) f32."""
+    n = mesh_axes_size(mesh, tuple(axes))
+    n_obj = y.shape[0]
+    S = -(-n_obj // (n * DEFAULT_BO)) * DEFAULT_BO  # padding included
+    starts = range(0, n_obj, S) if S else [0]    # shards with real rows
+    return torch.cat([placement_gains(x, y[a:a + S], lam, cur, hreq,
+                                      metric=metric, gamma=gamma,
+                                      quantize=quantize) for a in starts])
 
 
 def duel_virtual_costs(coords: torch.Tensor, ca: torch.Tensor | None,

@@ -1,9 +1,9 @@
 """Public lookup entries: ``nearest_approximizer``, ``fused_lookup`` and
 the compressed and pruned variants in front of it.
 
-Counterpart of ``repro.kernels.knn.ops`` (the ``sharded_*`` entries come
-with sharding). On CUDA tensors each exact entry launches its kernel
-(kernels/knn/knn.py); on CPU tensors it runs the plain PyTorch version.
+Counterpart of ``repro.kernels.knn.ops``. On CUDA tensors each exact
+entry launches its kernel (kernels/knn/knn.py); on CPU tensors it runs
+the plain PyTorch version.
 ``quantized_fused_lookup`` and ``pruned_fused_lookup`` select candidate
 rows in torch (the reference's are XLA, not Pallas) and rescore them
 through ``fused_lookup``, i.e. kernel A on the card. The CUDA kernels
@@ -13,6 +13,18 @@ kept only to mirror the reference's padding contract (queries pad with
 zeros, keys with repeats of key 0 so a pad never beats the genuine
 entry, features with zeros), which tests/test_torch_lookup.py holds
 against it.
+
+The ``sharded_*`` entries are the data plane over a mesh
+(launch/mesh.py): the key tensor, already padded to a multiple of the
+shard count (``ref.pad_to_shards``), is cut into that many contiguous
+balanced chunks, each chunk is scanned on its own with
+``fold_repo=False`` (one launch of kernel A per shard on the card, in
+turn on the tensors' device, with no host synchronization between
+shards), and the per-shard minima, five scalars per query and shard, are
+reduced by ``ref.reduce_shard_minima``, which folds the repository once.
+Shards in concatenated order and first-minimum ties make the result
+bitwise the unsharded lookup's at every shard count — what the
+reference's ``shard_map`` does across devices.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ from repro_torch.kernels.knn.knn import _INF, fused_lookup_cuda, knn_cuda
 from repro_torch.kernels.knn.lsh import (candidate_matrix, candidate_union,
                                          gather_candidate_rows,
                                          unscanned_h_bound)
+from repro_torch.kernels.knn.ref import reduce_shard_minima
 from repro_torch.kernels.quant import QuantizedRows
 from repro_torch.tracecount import Signatures
 
@@ -31,6 +44,9 @@ DEFAULT_TOP_T = 64        # quantized first pass: exact-rescore width
 DEFAULT_QTILE = 8192      # quantized first pass: key-axis tile
 _FUSED_SIGNATURES = Signatures("fused_lookup")
 _QUANT_SIGNATURES = Signatures("quantized_fused_lookup")
+_SHARDED_SIGNATURES = Signatures("sharded_fused_lookup")
+_SHARDED_QUANT_SIGNATURES = Signatures("sharded_quantized_fused_lookup")
+_SHARDED_PRUNED_SIGNATURES = Signatures("sharded_pruned_fused_lookup")
 # scores one group of first-pass tiles holds at once (f32 elements)
 _SELECT_GROUP_ELEMS = 1 << 24
 
@@ -107,6 +123,80 @@ def fused_lookup(queries: torch.Tensor, keys: torch.Tensor,
     return fused_lookup_cuda(queries, keys, h_key.reshape(-1), meta,
                              metric=metric, gamma=gamma, h_repo=h_repo,
                              repo_level=repo_level, fold_repo=fold_repo)
+
+
+def mesh_axes_size(mesh, axes: tuple[str, ...]) -> int:
+    """Product of the given mesh axis sizes — the shard count. The one
+    definition shared by the sharded entries, SimCacheNetwork.n_shards,
+    LookupShardPolicy.n_shards and DeviceInstance.n_shards, so the
+    padding contract (key axis % shard count == 0) cannot drift between
+    layout and dispatch."""
+    n = 1
+    for ax in axes:
+        n *= mesh.shape[ax]
+    return n
+
+
+def shard_meta(meta: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """A shard-padded (4, K) meta regrouped into (n, 4, K/n), so that
+    every shard's rows are contiguous, as kernel A reads them. The
+    sharded entries take either form; a caller that looks up many
+    batches keeps this one (SimCacheNetwork.sharded_meta)."""
+    K = meta.shape[1]
+    return meta.reshape(4, n_shards, K // n_shards).transpose(0, 1) \
+        .contiguous()
+
+
+def _shard_chunks(keys: torch.Tensor, h_key: torch.Tensor,
+                  meta: torch.Tensor, n_shards: int) -> list[tuple]:
+    """The ``n_shards`` contiguous balanced chunks (keys, h_key, meta) of
+    a shard-padded layout. Key and h chunks are views; a (4, K) meta is
+    regrouped by :func:`shard_meta`, an (n, 4, K/n) one is sliced."""
+    K = keys.shape[0]
+    if K % n_shards:
+        raise ValueError(f"{K} keys do not divide into {n_shards} shards: "
+                         "pad the layout first (ref.pad_to_shards)")
+    S = K // n_shards
+    if meta.dim() == 2:
+        meta = shard_meta(meta, n_shards)
+    h = h_key.reshape(-1)
+    return [(keys[s * S:(s + 1) * S], h[s * S:(s + 1) * S], meta[s])
+            for s in range(n_shards)]
+
+
+def _reduce(parts: list[tuple], h_repo: float, repo_level: int) -> tuple:
+    """Stack per-shard (cost, C_a, level, slot, payload) to (n, B) on the
+    device and reduce them to the global winner."""
+    stk = [torch.stack([p[i] for p in parts]) for i in range(5)]
+    return reduce_shard_minima(*stk, h_repo=h_repo, repo_level=repo_level)
+
+
+def sharded_fused_lookup(queries: torch.Tensor, keys: torch.Tensor,
+                         h_key: torch.Tensor, meta: torch.Tensor, mesh,
+                         axes: tuple[str, ...], metric: str = "l2",
+                         gamma: float = 1.0, h_repo: float = 0.0,
+                         repo_level: int = -1) -> tuple[torch.Tensor, ...]:
+    """Sharded fused lookup: one :func:`fused_lookup` with
+    ``fold_repo=False`` per contiguous key chunk (kernel A's shard-local
+    entry on the card), then the lexicographic reduction. ``keys``,
+    ``h_key`` and ``meta`` must already be padded so that the key axis
+    divides the shard count, the product of the ``axes`` sizes of
+    ``mesh`` (SimCacheNetwork.sharded_layout); ``meta`` is (4, K) or
+    its :func:`shard_meta` regrouping. Returns (cost,
+    approx_cost, level, slot, payload), bitwise the unsharded
+    :func:`fused_lookup`'s.
+
+    Each new signature bumps ``tracecount["sharded_fused_lookup"]`` once,
+    as the reference's trace does."""
+    axes = tuple(axes)
+    _SHARDED_SIGNATURES.seen(_signature(
+        queries, (queries, keys, h_key, meta), mesh, axes, metric,
+        float(gamma), float(h_repo), int(repo_level)))
+    chunks = _shard_chunks(keys, h_key, meta, mesh_axes_size(mesh, axes))
+    parts = [fused_lookup(queries, k, h, m, metric=metric, gamma=gamma,
+                          h_repo=h_repo, repo_level=repo_level,
+                          fold_repo=False) for k, h, m in chunks]
+    return _reduce(parts, h_repo, repo_level)
 
 
 def _repo_only(queries: torch.Tensor, keys: torch.Tensor,
@@ -234,6 +324,45 @@ def quantized_fused_lookup(queries: torch.Tensor, keys: torch.Tensor,
     return (*out, bound)
 
 
+def sharded_quantized_fused_lookup(queries: torch.Tensor,
+                                   keys: torch.Tensor, h_key: torch.Tensor,
+                                   meta: torch.Tensor, kq: QuantizedRows,
+                                   mesh, axes: tuple[str, ...],
+                                   top_t: int = DEFAULT_TOP_T,
+                                   tile: int = DEFAULT_QTILE,
+                                   metric: str = "l2", gamma: float = 1.0,
+                                   h_repo: float = 0.0, repo_level: int = -1
+                                   ) -> tuple[torch.Tensor, ...]:
+    """Sharded compressed lookup. ``kq`` is the int8 image of the
+    shard-padded key tensor; quantization is per row, so the chunks that
+    cut ``keys`` cut it. Each shard runs the first pass and the exact
+    rescore on its chunk (:func:`quantized_fused_lookup`,
+    ``fold_repo=False``), the minima are reduced as in
+    :func:`sharded_fused_lookup`, and the per-query bound is the min over
+    the shards' vT: an un-scanned key lies in some shard and costs at
+    least that shard's vT. Padding rows (valid 0, scale 0) score +INF and
+    are never selected.
+
+    Each new signature bumps
+    ``tracecount["sharded_quantized_fused_lookup"]`` once."""
+    axes = tuple(axes)
+    _SHARDED_QUANT_SIGNATURES.seen(_signature(
+        queries, (queries, keys, h_key, meta, kq.q), mesh, axes,
+        int(top_t), int(tile), metric, float(gamma), float(h_repo),
+        int(repo_level)))
+    n = mesh_axes_size(mesh, axes)
+    chunks = _shard_chunks(keys, h_key, meta, n)
+    S = keys.shape[0] // n
+    parts = [quantized_fused_lookup(
+        queries, k, h, m,
+        QuantizedRows(*(t[s * S:(s + 1) * S] for t in kq)), top_t=top_t,
+        tile=tile, metric=metric, gamma=gamma, h_repo=h_repo,
+        repo_level=repo_level, fold_repo=False)
+        for s, (k, h, m) in enumerate(chunks)]
+    bound = torch.stack([p[5] for p in parts]).min(dim=0).values
+    return (*_reduce(parts, h_repo, repo_level), bound)
+
+
 def pruned_fused_lookup(queries: torch.Tensor, keys: torch.Tensor,
                         h_key: torch.Tensor, meta: torch.Tensor,
                         proj: torch.Tensor, buckets: torch.Tensor,
@@ -284,3 +413,41 @@ def pruned_fused_lookup(queries: torch.Tensor, keys: torch.Tensor,
                        h_repo=h_repo, repo_level=repo_level,
                        fold_repo=fold_repo)
     return (*out, bound)
+
+
+def sharded_pruned_fused_lookup(queries: torch.Tensor, keys: torch.Tensor,
+                                h_key: torch.Tensor, meta: torch.Tensor,
+                                proj_s: torch.Tensor,
+                                buckets_s: torch.Tensor, mesh,
+                                axes: tuple[str, ...], kind: str = "lsh",
+                                n_probes: int = 1, cap_union: int = 512,
+                                metric: str = "l2", gamma: float = 1.0,
+                                h_repo: float = 0.0, repo_level: int = -1,
+                                quantize: bool = False,
+                                top_t: int = DEFAULT_TOP_T
+                                ) -> tuple[torch.Tensor, ...]:
+    """Sharded pruned lookup: shard s hashes the queries against its own
+    tables ``proj_s[s]``/``buckets_s[s]`` (lsh.stack_shard_tables) and
+    scans only its chunk's candidate union (:func:`pruned_fused_lookup`,
+    ``fold_repo=False``; ``cap_union`` is resolved on the chunk size).
+    The reduction and the tie-break order are untouched. The bound is the
+    min over the shards' bounds — a scalar, or with ``quantize`` (the
+    compressed first pass inside each shard's union) per query.
+
+    Each new signature bumps
+    ``tracecount["sharded_pruned_fused_lookup"]`` once."""
+    axes = tuple(axes)
+    _SHARDED_PRUNED_SIGNATURES.seen(_signature(
+        queries, (queries, keys, h_key, meta, proj_s, buckets_s), mesh,
+        axes, kind, int(n_probes), int(cap_union), metric, float(gamma),
+        float(h_repo), int(repo_level), bool(quantize), int(top_t)))
+    chunks = _shard_chunks(keys, h_key, meta, mesh_axes_size(mesh, axes))
+    parts = [pruned_fused_lookup(
+        queries, k, h, m, proj_s[s], buckets_s[s], kind=kind,
+        n_probes=n_probes, cap_union=cap_union, metric=metric, gamma=gamma,
+        h_repo=h_repo, repo_level=repo_level, fold_repo=False,
+        quantize=quantize, top_t=top_t)
+        for s, (k, h, m) in enumerate(chunks)]
+    bounds = torch.stack([p[5] for p in parts])
+    bound = bounds.min(dim=0).values if quantize else bounds.min()
+    return (*_reduce(parts, h_repo, repo_level), bound)

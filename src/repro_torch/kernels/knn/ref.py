@@ -211,6 +211,30 @@ def pruned_fused_lookup_ref(queries: torch.Tensor, keys: torch.Tensor,
     return (*out, unscanned_h_bound(h_key, meta, kept_mask))
 
 
+def sharded_pruned_fused_lookup_ref(queries: torch.Tensor,
+                                    keys: torch.Tensor, h_key: torch.Tensor,
+                                    meta: torch.Tensor, tables: list,
+                                    cap_union: int, metric: str = "l2",
+                                    gamma: float = 1.0, h_repo: float = 0.0,
+                                    repo_level: int = -1
+                                    ) -> tuple[torch.Tensor, ...]:
+    """Mesh-free oracle of ops.sharded_pruned_fused_lookup: the (padded)
+    key tensor in ``len(tables)`` contiguous balanced chunks, each pruned
+    with its own tables (``fold_repo=False``), :func:`reduce_shard_minima`,
+    and the min of the shards' un-scanned-h bounds."""
+    n_shards = len(tables)
+    keys, h_key, meta = pad_to_shards(keys, h_key, meta, n_shards)
+    S = keys.shape[0] // n_shards
+    parts = [pruned_fused_lookup_ref(
+        queries, keys[s * S:(s + 1) * S], h_key[s * S:(s + 1) * S],
+        meta[:, s * S:(s + 1) * S], tables[s], cap_union, metric=metric,
+        gamma=gamma, h_repo=h_repo, repo_level=repo_level,
+        fold_repo=False) for s in range(n_shards)]
+    stk = [torch.stack([p[i] for p in parts]) for i in range(5)]
+    red = reduce_shard_minima(*stk, h_repo=h_repo, repo_level=repo_level)
+    return (*red, torch.stack([p[5] for p in parts]).min())
+
+
 def quantized_fused_lookup_ref(queries: torch.Tensor, keys: torch.Tensor,
                                h_key: torch.Tensor, meta: torch.Tensor,
                                kq=None, top_t: int = 64,
@@ -246,3 +270,29 @@ def quantized_fused_lookup_ref(queries: torch.Tensor, keys: torch.Tensor,
                            h_repo=h_repo, repo_level=repo_level,
                            fold_repo=fold_repo)
     return (*out, bound)
+
+
+def sharded_quantized_fused_lookup_ref(queries: torch.Tensor,
+                                       keys: torch.Tensor,
+                                       h_key: torch.Tensor,
+                                       meta: torch.Tensor, n_shards: int,
+                                       top_t: int = 64, metric: str = "l2",
+                                       gamma: float = 1.0,
+                                       h_repo: float = 0.0,
+                                       repo_level: int = -1
+                                       ) -> tuple[torch.Tensor, ...]:
+    """Mesh-free oracle of ops.sharded_quantized_fused_lookup: the padded
+    key tensor in ``n_shards`` chunks, the compressed lookup per chunk
+    (``fold_repo=False``; per-row quantization makes a chunk's int8 image
+    the chunk of the whole image), :func:`reduce_shard_minima`, and the
+    per-query min of the shards' vT bounds."""
+    keys, h_key, meta = pad_to_shards(keys, h_key, meta, n_shards)
+    S = keys.shape[0] // n_shards
+    parts = [quantized_fused_lookup_ref(
+        queries, keys[s * S:(s + 1) * S], h_key[s * S:(s + 1) * S],
+        meta[:, s * S:(s + 1) * S], top_t=top_t, metric=metric,
+        gamma=gamma, h_repo=h_repo, repo_level=repo_level,
+        fold_repo=False) for s in range(n_shards)]
+    stk = [torch.stack([p[i] for p in parts]) for i in range(5)]
+    red = reduce_shard_minima(*stk, h_repo=h_repo, repo_level=repo_level)
+    return (*red, torch.stack([p[5] for p in parts]).min(dim=0).values)

@@ -11,7 +11,11 @@ Counterpart of ``repro.serve.engine`` for this slice of the port:
   front of kernel A, and ``verify`` re-scans what they cannot certify,
   serving exactly what the exact lookup serves; batches are padded to a
   power-of-two bucket (``EngineConfig.bucket``) and the padding is
-  masked out of every stat;
+  masked out of every stat; with ``EngineConfig.sharded`` and an engine
+  ``mesh`` (launch/mesh.py) the key axis is cut over the axes that
+  :class:`~repro_torch.launch.sharding.LookupShardPolicy` picks, one
+  launch of kernel A per shard and a cross-shard reduction, serving
+  bitwise what the fused lookup serves;
 * the control plane — ``refresh_placement`` re-solves the offline
   problem on the observed demand window: by default the cascade (GREEDY
   seeded by the gain oracle, kernel C, then a LOCALSWAP polish) on a
@@ -20,7 +24,10 @@ Counterpart of ``repro.serve.engine`` for this slice of the port:
   ``EngineConfig.warm_start`` a topology that reduces to a §4
   continuous program (the built-in hierarchy, a chain, always does) is
   solved by the continuous-limit pipeline of placement/warmstart.py
-  instead (solve, Prop 4.2 band map, a bounded LOCALSWAP polish);
+  instead (solve, Prop 4.2 band map, a bounded LOCALSWAP polish); a
+  sharded engine shards the synchronous solve's oracle and best-two
+  tables over the same axes (the same bits), and solves its background
+  refreshes unsharded, as the reference does;
 * the double buffer — ``request_refresh`` solves in a background thread
   while the active :class:`PlacementBuffer` keeps serving, and
   ``poll_refresh`` installs the result with one swap;
@@ -47,8 +54,7 @@ Counterpart of ``repro.serve.engine`` for this slice of the port:
 
 The repository is the dense decoder of repro_torch.models, its prefill
 attention on kernel E when the engine's ``cfg.use_flash_attention`` is
-set. ``EngineConfig.sharded``, a later slice, raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+set.
 """
 from __future__ import annotations
 
@@ -74,6 +80,7 @@ from repro_torch.core.placement import (DuelPlane, device_greedy,
 from repro_torch.core.routing import StrategyPlane
 from repro_torch.core.simcache import SimCacheNetwork
 from repro_torch.core.topology import CacheNetwork, tpu_hierarchy
+from repro_torch.launch.sharding import LookupShardPolicy
 from repro_torch.models import model as model_api
 
 
@@ -111,7 +118,7 @@ class EngineConfig:
     metric: str = "l2"
     algo: str = "cascade"         # greedy | localswap | cascade
     fused: bool = True            # single fused lookup kernel per batch
-    sharded: bool = False         # not ported: queue 1 item 11
+    sharded: bool = False         # sharded keys (needs an engine mesh)
     prune: str | None = None      # "lsh" | "kmeans" candidate pre-filter
     verify: bool = False          # exact re-scan past the pruning bound
     quantize: bool = False        # int8 lower-bound first pass + exact
@@ -144,17 +151,6 @@ class EngineConfig:
     #                               λ-unaware plane, on any network
     strategy_threshold: float | None = None  # C_a admission threshold θ
     strategy_seed: int = 0        # probcache / rnd-lru coin seed
-
-
-_LATER_SLICES = (("sharded", "item 11"),)
-
-
-def _check_ported(ecfg: EngineConfig) -> None:
-    for flag, item in _LATER_SLICES:
-        if getattr(ecfg, flag):
-            raise NotImplementedError(
-                f"EngineConfig.{flag} is not ported yet: ROADMAP queue 1 "
-                f"{item}")
 
 
 # retained batch-latency window: percentiles over the newest
@@ -224,14 +220,24 @@ class PlacementBuffer:
 
 class SimCacheEngine:
     """Batched serving for a decoder LM behind a similarity-cache network,
-    on ``device`` (CUDA unless named)."""
+    on ``device`` (CUDA unless named). ``mesh`` (launch/mesh.py) is the
+    shard mesh of ``EngineConfig.sharded``; its shards run in turn on
+    ``device``."""
 
     def __init__(self, cfg: ArchConfig, params, ecfg: EngineConfig,
                  catalog_coords: np.ndarray,
                  net: CacheNetwork | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh=None):
         self.device = resolve_device(device)
-        _check_ported(ecfg)
+        if ecfg.sharded and mesh is None:
+            raise ValueError("EngineConfig.sharded requires a mesh")
+        # key-axis shard policy of the sharded data plane: resolved once
+        # from the mesh, reused on every placement install
+        self.mesh = mesh
+        self.lookup_shards = (LookupShardPolicy.create(mesh,
+                                                       prune=ecfg.prune)
+                              if mesh is not None else None)
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
@@ -344,13 +350,28 @@ class SimCacheEngine:
                       gamma=self.ecfg.gamma)
         return Instance(net=self.net, cat=cat, dem=dem)
 
-    def _solve(self, inst: Instance, algo: str,
-               device: bool) -> tuple[np.ndarray, float]:
+    def _control_shard_args(self, shard: bool = True) -> dict:
+        """``mesh`` and ``axes`` of the control plane's DeviceInstance:
+        the data plane's on a sharded engine (the instance runs unsharded
+        when they resolve to one shard), none otherwise or with
+        ``shard=False``."""
+        if not (shard and self.ecfg.sharded):
+            return {}
+        return dict(mesh=self.mesh, axes=self.lookup_shards.axes)
+
+    def _solve(self, inst: Instance, algo: str, device: bool,
+               shard: bool = True) -> tuple[np.ndarray, float]:
         """Run the offline solver on one observed instance; returns the
         (clamped) allocation and the predicted C(A). ``device`` picks the
         device control plane (a streaming ``DeviceInstance``) over the
         NumPy oracles. Records its phases' seconds in
         ``solve_timings``.
+
+        ``shard=False`` solves unsharded even on a sharded engine; the
+        background refresh does so, as the reference's does (there a
+        sharded solve on the worker thread could race the serving
+        thread's collectives). The sharded oracle and tables are bitwise
+        the unsharded ones, so the allocation is the same either way.
 
         With ``EngineConfig.warm_start`` on and a topology that reduces
         to a §4 continuous program, the continuous-limit pipeline
@@ -364,7 +385,8 @@ class SimCacheEngine:
             inst.net, gamma=inst.cat.gamma) if self.ecfg.warm_start else None
         if device:
             dinst = DeviceInstance.from_instance(
-                inst, materialize_ca=False, device=self.device)
+                inst, materialize_ca=False, device=self.device,
+                **self._control_shard_args(shard))
         if warm_red is not None:
             rep = warmstart.warm_start(
                 inst, reduction=warm_red, device=device,
@@ -400,9 +422,11 @@ class SimCacheEngine:
     def _arm_duel(self, inst: Instance, slots: np.ndarray) -> None:
         """(Re-)arm the online §5 plane: the duel state lives on the
         device and persists across serve() batches (reset on every
-        offline install)."""
+        offline install); on a sharded engine its table rebuilds shard
+        the request axis over the data plane's axes."""
         duel_dinst = DeviceInstance.from_instance(
-            inst, materialize_ca=False, device=self.device)
+            inst, materialize_ca=False, device=self.device,
+            **self._control_shard_args())
         self.duel = DuelPlane(
             duel_dinst, slots, window=self.ecfg.duel_window,
             delta=self.ecfg.duel_delta,
@@ -473,7 +497,8 @@ class SimCacheEngine:
 
         def work():
             try:
-                slots, pred = self._solve(inst, algo, device)
+                # unsharded, as the reference's background solve
+                slots, pred = self._solve(inst, algo, device, shard=False)
                 with self._refresh_lock:
                     self._pending = (slots, inst, pred, surrogate_now)
             except BaseException:
@@ -538,10 +563,14 @@ class SimCacheEngine:
             # the exact f64 config values (the net stores H in f32)
             hs = [0.0, self.ecfg.h_ici, self.ecfg.h_dcn]
             h_repo = self.ecfg.h_model
+        pol = self.lookup_shards
         simcache = SimCacheNetwork.from_placement(
             self.coords, slots, slot_cache, hs, h_repo,
             metric=self.ecfg.metric, gamma=self.ecfg.gamma,
-            fused=self.ecfg.fused, device=self.device)
+            fused=self.ecfg.fused, device=self.device,
+            sharded=self.ecfg.sharded, mesh=self.mesh,
+            shard_axes=pol.axes if pol else None,
+            candidate_policy=pol.candidate_policy() if pol else None)
         self.placement.install(simcache, np.asarray(slots), slot_cache)
 
     # --------------------------------------------------------- data plane

@@ -262,12 +262,6 @@ def test_observed_instance_cold_uniform_and_unfloored():
     assert np.all(lam[0, 3:] == 0.0)
 
 
-@pytest.mark.parametrize("flag", [dict(sharded=True)])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        make_engine(**flag)
-
-
 FLAGS = [dict(quantize=True, verify=True), dict(prune="lsh", verify=True),
          dict(prune="kmeans", verify=True),
          dict(prune="lsh", quantize=True, verify=True)]

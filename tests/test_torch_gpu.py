@@ -960,3 +960,109 @@ def test_quantized_gains_admissible_against_kernel_c(cuda):
     t2 = 16 * U32 * (n2[:, None] + n2[None, :])
     tol = (lam @ (t2 / (d + t2.sqrt()))).T            # (O, 1)
     assert bool((quant_g >= exact - tol - 1e-4 * exact.abs()).all())
+
+
+# ------------------------------------------------------ the sharded planes
+@pytest.mark.parametrize("D", [100, 37, 3])
+@pytest.mark.parametrize("n_shards", [2, 3, 8])
+def test_shard_local_entry_matches_plain_on_chunks(cuda, n_shards, D):
+    """Kernel A's shard-local entry (``fold_repo=False``) on each chunk
+    view of a shard-padded layout — views at offsets whose address is
+    16-byte aligned or not (D 37, 3 take the 4-byte staging), and chunks
+    of padding only — against its plain version, and the chunks' reduced
+    minima bitwise the unsharded launch."""
+    from repro_torch.kernels.knn.ops import _shard_chunks
+    from repro_torch.kernels.knn.ref import pad_to_shards
+    q, k, h, meta = _segmented(cuda, 64, 1001, D, n_shards + D)
+    S = -(-1001 // n_shards)
+    # two more chunks of S than the keys fill: padding only
+    kp, hp, mp = pad_to_shards(k, h, meta, (n_shards + 2) * S)
+    kw = dict(metric="l2", gamma=1.0, h_repo=100.0, repo_level=-1)
+    parts = []
+    for kc, hc, mc in _shard_chunks(kp, hp, mp, n_shards + 2):
+        n0 = fused_lookup_cuda.launches
+        got = fused_lookup_cuda(q, kc, hc, mc, fold_repo=False, **kw)
+        assert fused_lookup_cuda.launches == n0 + 1
+        ref = fused_lookup_ref(q, kc, hc, mc, fold_repo=False, **kw)
+        if not bool((mc[3] > 0).any()):               # padding only
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+            assert bool((got[0] == 3.0e38).all() and (got[4] == -1).all())
+        else:
+            tol = _tol(q, kc, ref[1], "l2")
+            assert bool(((got[0] - ref[0]).abs() <= tol).all())
+        parts.append(got)
+    stk = [torch.stack([p[i] for p in parts]) for i in range(5)]
+    from repro_torch.kernels.knn.ref import reduce_shard_minima
+    _assert_bitwise(reduce_shard_minima(*stk, h_repo=100.0, repo_level=-1),
+                    fused_lookup_cuda(q, k, h, meta, **kw))
+
+
+@pytest.mark.parametrize("K", [448, 65_536])
+@pytest.mark.parametrize("n_shards", [2, 3, 8])
+def test_sharded_lookup_bitwise_on_card(cuda, K, n_shards):
+    """A sharded network serves the fused network's bits, exact and with
+    every verified flag, with n launches of kernel A per exact lookup."""
+    import dataclasses
+    from repro_torch.launch.mesh import make_lookup_mesh
+    net, q = _plane_net(cuda, K, "l2", seed=n_shards)
+    snet = dataclasses.replace(net, sharded=True,
+                               mesh=make_lookup_mesh(n_shards))
+    exact = net.lookup(q)
+    n0 = fused_lookup_cuda.launches
+    got = snet.lookup(q)
+    torch.cuda.synchronize()
+    assert fused_lookup_cuda.launches - n0 == n_shards
+    assert _bits_equal(got, exact)
+    for flags in (dict(quantize=True), dict(prune="lsh"),
+                  dict(prune="kmeans"), dict(prune="lsh", quantize=True)):
+        assert _bits_equal(snet.lookup(q, verify=True, top_t=16, **flags),
+                           exact)
+
+
+@pytest.mark.parametrize("n_shards,J", [(2, 3), (3, 37), (4, 3)])
+def test_sharded_gains_bitwise_on_card(cuda, n_shards, J):
+    """Kernel C per candidate shard, ⌈J/8⌉ launches a shard: every column
+    bitwise the unsharded call's."""
+    from repro_torch.launch.mesh import make_lookup_mesh
+    g = torch.Generator().manual_seed(J)
+    R, O, D, I = 3000, 2900, 100, 4
+    x = torch.randn(R, D, generator=g).to(cuda)
+    y = torch.randn(O, D, generator=g).to(cuda)
+    lam = torch.rand(I, R, generator=g).to(cuda)
+    cur = (torch.rand(I, R, generator=g) * 20).to(cuda)
+    h = (torch.rand(I, J, generator=g) * 10).to(cuda)
+    want = G.placement_gains(x, y, lam, cur, h)
+    n0 = G.gains_cuda.launches
+    got = G.sharded_placement_gains(x, y, lam, cur, h,
+                                    make_lookup_mesh(n_shards), ("data",))
+    torch.cuda.synchronize()
+    assert G.gains_cuda.launches - n0 == n_shards * -(-J // 8)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_control_plane_bitwise_on_card(cuda, n_shards):
+    """A sharded streaming ``DeviceInstance``: GREEDY's allocation, the
+    best-two tables and a forced full rebuild of the delta refresh are
+    the unsharded instance's, bit for bit."""
+    from repro_torch.launch.mesh import make_lookup_mesh
+    cat = catalog.embedding_catalog(n=5000, dim=100, seed=2)
+    net = topology.tpu_hierarchy(16, 32, 64, 15.0, 150.0, 1000.0)
+    inst = Instance(net=net, cat=cat, dem=demand.zipf(cat, alpha=0.9,
+                                                      seed=2))
+    kw = dict(materialize_ca=False, device=cuda)
+    d = DeviceInstance.from_instance(inst, **kw)
+    ds = DeviceInstance.from_instance(inst, mesh=make_lookup_mesh(n_shards),
+                                      axes=("data",), **kw)
+    slots = device_greedy(ds)
+    np.testing.assert_array_equal(slots, device_greedy(d))
+    for a, b in zip(ds.best_two_tables(slots), d.best_two_tables(slots)):
+        assert torch.equal(_bits(a), _bits(b))
+    pre = ds.best_two_tables(slots)
+    new = slots.copy()
+    new[:40] = np.arange(4000, 4040)
+    ys = np.arange(40)
+    for a, b in zip(ds.best_two_delta(*pre, new, ys, cap=1),
+                    d.best_two_tables(new)):
+        assert torch.equal(_bits(a), _bits(b))

@@ -1,7 +1,7 @@
 """The port's NETDUEL (paper §5) against the JAX reference, on the CPU.
 
-Mirrors tests/test_netduel.py and tests/test_netduel_device.py (without
-the mesh test: sharding is ROADMAP queue 1 item 11). The gauss, zipf and
+Mirrors tests/test_netduel.py and tests/test_netduel_device.py (the
+mesh test is in tests/test_torch_sharded.py). The gauss, zipf and
 tree instances are built in both packages from the same seeds (their
 numpy inputs are byte-equal, tests/test_torch_data.py).
 

@@ -29,7 +29,8 @@ MODULES = [
     "repro_torch.core.routing", "repro_torch.core.analysis",
     "repro_torch.core.analysis.hitrate", "repro_torch.kernels.quant",
     "repro_torch.kernels.knn.lsh", "repro_torch.kernels.knn.ops",
-    "repro_torch.kernels.knn.ref", "repro_torch.kernels.knn.gains"]
+    "repro_torch.kernels.knn.ref", "repro_torch.kernels.knn.gains",
+    "repro_torch.launch.mesh", "repro_torch.launch.sharding"]
 
 _PROBE = """
 import sys
