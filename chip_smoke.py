@@ -9,8 +9,9 @@ Phases, one line each before the last:
    power limit line.
 2. ``build`` — seconds to build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
-   parallel); for each instantiation of kernels A and B, and of kernels
-   C and D, and of kernel F, ptxas's registers and spills; for kernel E's
+   parallel); for each instantiation of kernels A and B, of kernels C
+   and D, and of kernel F (its steps, registers or runs of slots, and
+   its re-arm's two passes), ptxas's registers and spills; for kernel E's
    bf16 (tensor-core)
    instantiations, the same, their dynamic shared memory, and where
    ``cuobjdump`` exists the ``HGMMA`` (and ``HMMA``) instructions in
@@ -72,12 +73,16 @@ Phases, one line each before the last:
    exact and the four verified flag sets, each bitwise the exact result,
    with A's launches, the re-scanned share and the per-shard table
    builds.
-   Then ``duel``: kernel F, the NETDUEL scan between promotions, at the
-   engine's scale (10⁵ objects, K 448, C_a streamed, from random slots,
-   4,096 requests, window 256), once through F (counted) and once
-   through the plain scan on the card: every output bitwise equal, at
-   least one promotion, F's launches one per promoting step plus one;
-   both scans' times per request, the re-arms' time, F's device time.
+   Then ``duel``: kernel F, the NETDUEL scan between promotions and its
+   re-arm, at the engine's scale (10⁵ objects, K 448, C_a streamed, from
+   random slots, 4,096 requests, window 256), once through F (counted)
+   and once through the plain scan on the card: every output bitwise
+   equal, at least one promotion, F's launches one per promoting step
+   plus one and one re-arm launch per promoting step; every re-arm held
+   bitwise against the torch re-arm on its inputs; both scans' times
+   per request, the re-arms' time, F's device time and its share of the
+   chain floor; the re-arm's device time a call, its time, its plain
+   version's and its bound.
 6. ``engine`` — ``SimCacheEngine`` with granite-3-2b at full width
    (random weights from a seed) in front of a 100,000-object catalog.
    The main path: cold serving, ``refresh_placement()`` (cascade on the
@@ -126,9 +131,11 @@ Phases, one line each before the last:
    Then ``duel_engine``: the online plane on the serving path — the
    same engine with ``netduel`` and ``refresh_on_promotion`` (1,024 cold
    requests, ``refresh_placement()``, 4,096 warm requests, the drain),
-   its launches counted over the run (F's among them); every batch each
-   duel plane observed is replayed through a second ``DuelPlane`` on the
-   plain scan, whose carry must equal the engine's bitwise.
+   its launches counted over the run (F's steps and re-arms among
+   them); every batch each duel plane observed is replayed through a
+   second ``DuelPlane`` on the plain scan, whose carry must equal the
+   engine's bitwise, and through a third on F with every re-arm held
+   bitwise against the torch re-arm.
    Then ``scenario``: a multi-ingress ISP-like network (37 caches, 448
    slots, 4 ingresses) on the stream's catalog rescaled by the reference
    hit-rate bench's rule; GREEDY on the card (kernel C in 5 groups a
@@ -170,7 +177,9 @@ Phases, one line each before the last:
 10. ``kernels`` — one JSON object with every kernel's numbers; A's and
    B's entries also carry each of their two shapes (K 448 and 65,536),
    C's its two (R = O = 10⁵ and 20,000) and its times past 8 caches; F's
-   launches are those of the ``duel_engine`` run; A's entry also carries
+   steps (``duel_scan``) and its re-arm (``duel_rearm``) count the
+   ``duel_engine`` run's launches, and the ``duel`` phase's as
+   ``launches_duel``; A's entry also carries
    its launches in the ``warmstart`` run, C's and E's their launches in
    the ``scenario`` runs, and every entry its launches in the ``gate``
    run; A's also its launches over the ``compress`` runs; A's and C's
@@ -397,14 +406,19 @@ def phase_build():
                            f"instantiations, not 24: {sorted(gain)}")
     duel = {}                          # kernel F, per instantiation
     for name, info in entries.items():
-        m = re.search(r"duel_scan_kernelILb(\d)ELi(\d)E", name)
+        m = re.search(r"(duel_scan|rearm_rows|rearm_dirty)_kernelILb(\d)"
+                      r"ELi(\d)E(?:Lb(\d)E)?", name)
         if m:
-            key = "materialized" if m[1] == "1" else \
-                f"streamed {('l1', 'l2', 'l2sq')[int(m[2])]}"
-            duel[key] = info
-    if len(duel) != 4:                 # materialized + 3 streamed metrics
+            key = "materialized" if m[2] == "1" else \
+                f"streamed {('l1', 'l2', 'l2sq')[int(m[3])]}"
+            if m[1] == "duel_scan":
+                key += " registers" if m[4] == "1" else " runs"
+            duel[f"{m[1]} {key}"] = info
+    # steps: (materialized + 3 streamed metrics) x (registers, runs);
+    # re-arm: (materialized + 3 metrics) x (rows pass, dirty pass)
+    if len(duel) != 16:
         raise RuntimeError(f"ptxas reported {len(duel)} duel kernel "
-                           f"instantiations, not 4: {sorted(duel)}")
+                           f"instantiations, not 16: {sorted(duel)}")
     log("build", seconds=LIBRARY.build_seconds,
         registers=sorted({int(r) for r in re.findall(
             r"Used (\d+) registers", log_)}),
@@ -1718,21 +1732,95 @@ def _duel_bound(torch, objs, arm_flags, K, D, I):
     return bound_ms(n_bytes, priced * (3 * D + 5)) + (priced,)
 
 
+class RearmHold:
+    """Inside ``with``: every re-arm the kernel path makes (through
+    ``netduel.duel_rearm_cuda``) is also run by its plain version,
+    ``duel_rearm_ref`` (torch ops), on the same inputs and held bitwise;
+    each call's promoted slots and dirty rows are kept, and the first
+    call's inputs (for timing). Used outside the counted runs only."""
+
+    def __init__(self, torch, nd):
+        self.torch, self.nd = torch, nd
+        self.calls, self.equal = 0, True
+        self.promoted, self.dirty, self.first = [], [], None
+
+    def __enter__(self):
+        torch = self.torch
+        from repro_torch.kernels.duel import duel_rearm_ref
+        kernel = self._kernel = self.nd.duel_rearm_cuda
+
+        def bits(t):
+            return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+        def held(*args):
+            if self.first is None:
+                self.first = tuple(
+                    tuple(t.clone() for t in a) if isinstance(a, tuple)
+                    else a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+            got = kernel(*args)
+            want = duel_rearm_ref(*args)
+            self.calls += 1
+            self.equal &= all(torch.equal(bits(g), bits(w))
+                              for g, w in zip(got, want))
+            pre, promote = args[0], args[2]
+            ys = torch.nonzero(promote).reshape(-1)
+            self.promoted.append(int(ys.numel()))
+            hit = torch.isin(pre[1], ys) | torch.isin(pre[3], ys)
+            self.dirty.append(int(hit.any(dim=0).sum()))
+            return got
+        self.nd.duel_rearm_cuda = held
+        return self
+
+    def __exit__(self, *exc):
+        self.nd.duel_rearm_cuda = self._kernel
+
+    def summary(self) -> dict:
+        return dict(calls=self.calls, bitwise=self.equal,
+                    promoted_mean=float(np.mean(self.promoted or [0])),
+                    promoted_max=max(self.promoted or [0]),
+                    dirty_rows_mean=float(np.mean(self.dirty or [0])),
+                    dirty_rows_max=max(self.dirty or [0]))
+
+
+def _rearm_bound(args, n_promoted: int, n_dirty: int):
+    """The re-arm's bound from one call's inputs: bytes, the four
+    pre-fold tables read (24 B an entry) and the seven tables written
+    (40 B), the object rows read once (streamed) or each C_a entry the
+    call needs (materialized); operations, a chain of 3·D for each new
+    column of a clean row and each slot of a dirty row."""
+    pre, coords, ca = args[0], args[6], args[7]
+    I, O = pre[0].shape
+    K, D = args[1].shape[0], coords.shape[1]
+    pairs = (O - n_dirty) * n_promoted + n_dirty * K
+    n_bytes = I * O * 64 + (4 * pairs if ca is not None else 4 * O * D)
+    return bound_ms(n_bytes, 0 if ca is not None else pairs * 3 * D)
+
+
 def phase_duel(torch, cat, dem, clock_hz: float):
     """Kernel F at the engine's scale: the 10⁵-object catalog, its
     Zipf(0.8) demand, its three levels (64 / 128 / 256 slots, K = 448,
     h = 0 / 15 / 150, h_repo 1000), C_a streamed (``materialize_ca=False``,
     the engine's duel plane), from ``random_slots`` so that duels
     promote. The scan runs over 4,096 requests with window 256 once
-    through F (counted) and once through ``_duel_scan_ref``, both on the
-    card; every output must be bitwise equal (events, slots, virt,
-    deadlines, both savings, the per-step served cost), with at least one
-    promotion. The public entry, ``device_netduel``, must give the same.
-    Times: each scan over the window (host included, re-arms included),
-    per request; the re-arms alone; F's device time (torch.profiler).
-    Beside the bound from the card's rates, the chain floor: a step's
-    streamed pricing is one chain of D dependent rounded adds (4 clocks
-    each at the card's maximum SM clock), and the steps run in order."""
+    through F (counted: its steps and its re-arm entry) and once through
+    ``_duel_scan_ref``, the plain scan (its re-arms torch ops), both on
+    the card; every output must be bitwise equal (events, slots, virt,
+    deadlines, both savings, the pre-fold and serving tables, the
+    per-step served cost), with at least one promotion. The public
+    entry, ``device_netduel``, must give the same. Outside the counted
+    run the window runs through F again with every re-arm held bitwise
+    against the torch re-arm on the same inputs (``RearmHold``). Times:
+    each scan over the window (host included, re-arms included), per
+    request; the re-arms alone; F's device time (torch.profiler) and its
+    share of the chain floor; the re-arm's device time a call, its
+    CUDA-event time and its plain version's on the window's first
+    re-arm, beside its bound. The chain floor: a step's streamed pricing
+    is one chain of D dependent rounded adds (4 clocks each at the
+    card's maximum SM clock), and the steps run in order. F's device
+    time on the same window with arming off (no duel priced, one launch)
+    is what every step pays besides the chains. Returns F's entry and the
+    re-arm's."""
     import importlib
 
     from repro_torch.core.objective import DeviceInstance, Instance
@@ -1740,6 +1828,7 @@ def phase_duel(torch, cat, dem, clock_hz: float):
     from repro_torch.core.placement.localswap import emulated_stream
     from repro_torch.core.topology import tpu_hierarchy
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.duel import duel_rearm_ref
     nd = importlib.import_module("repro_torch.core.placement.netduel")
     net = tpu_hierarchy(64, 128, 256, 15.0, 150.0, 1000.0)
     inst = Instance(net=net, cat=cat, dem=dem)
@@ -1768,7 +1857,8 @@ def phase_duel(torch, cat, dem, clock_hz: float):
     timings = {}
     reset_launch_counts()                        # F's own run
     kc, ko, k_s = scan(True, timings)
-    launches = launch_counts()["duel_scan"]
+    counts = launch_counts()                     # read just after
+    launches, rearm_launches = counts["duel_scan"], counts["duel_rearm"]
     pc, po, p_s = scan(False)
     fields = list(nd.DuelCarry._fields)
     carry_equal = {f: bool(torch.equal(a, b))
@@ -1789,15 +1879,30 @@ def phase_duel(torch, cat, dem, clock_hz: float):
     entry_equal = (np.array_equal(st.slots, kc.slots.cpu().numpy())
                    and np.array_equal(st.virt_sav, kc.virt_sav.cpu().numpy())
                    and st.n_promotions == n_prom)
+    # every re-arm of the window against the torch re-arm (not counted)
+    with RearmHold(torch, nd) as hold:
+        hc, _, _ = scan(True)
+    held_carry = all(torch.equal(a, b) for a, b in zip(hc, kc))
     dev_t = device_ms(torch, lambda: scan(True), 1, "duel_scan_kernel")
+    dev_r = device_ms(torch, lambda: scan(True), 1, "rearm_")
+    dev_rows = device_ms(torch, lambda: scan(True), 1, "rearm_rows")
+    # the same window with arming off: no duel to price, no promotion,
+    # one launch; what every step pays besides the chains
+    xs_idle = xs._replace(armf=torch.zeros_like(xs.armf))
+    dev_idle = device_ms(torch, lambda: nd._duel_scan(
+        dinst, h_slots, on_path, carry0, xs_idle, one_delta, DUEL_WINDOW,
+        False, False, 0, kernel=True), 1, "duel_scan_kernel")
     K, D, I = h_slots.shape[1], cat.dim, h_slots.shape[0]
     bms, by, priced = _duel_bound(torch, objs, arm_flags, K, D, I)
+    chain_floor = DUEL_T * D * 4 / clock_hz * 1e3
     res = dict(name="duel_scan", catalog=cat.n, dim=D, K=K, T=DUEL_T,
                window=DUEL_WINDOW, arm_prob=DUEL_ARM, setup_s=setup_s,
                promotions=n_prom, promoting_steps=promoting_steps,
-               launches=launches, carry_bitwise=carry_equal,
+               launches=launches, rearm_launches=rearm_launches,
+               carry_bitwise=carry_equal,
                b1_bitwise=b1_equal, events_bitwise=events_equal,
                entry_point_equal=entry_equal,
+               rearms_held=hold.summary(), held_run_carry_equal=held_carry,
                max_abs_err=max(diffs), ms=k_s * 1e3, plain_ms=p_s * 1e3,
                ms_per_request=k_s * 1e3 / DUEL_T,
                plain_ms_per_request=p_s * 1e3 / DUEL_T,
@@ -1805,17 +1910,48 @@ def phase_duel(torch, cat, dem, clock_hz: float):
                rearms=timings.get("rearms", 0),
                kernel_device_ms=dev_t["device_ms"],
                kernel_device_ms_per_request=dev_t["device_ms"] / DUEL_T,
+               kernel_device_ms_arming_off=dev_idle["device_ms"],
+               rearm_device_ms_window=dev_r["device_ms"],
+               rearm_rows_pass_device_ms_window=dev_rows["device_ms"],
                priced_duels=priced, bound_ms=bms, bound_by=by,
-               chain_floor_ms=DUEL_T * D * 4 / clock_hz * 1e3,
+               chain_floor_ms=chain_floor,
+               chain_floor_share=chain_floor / dev_t["device_ms"],
                library_ms=None)
     log("duel", **res)
     ok = (all(carry_equal.values()) and b1_equal and events_equal
           and entry_equal and n_prom > 0 and max(diffs) == 0.0
           and launches == promoting_steps + (
-              0 if ko.events and ko.events[-1][0] == DUEL_T - 1 else 1))
+              0 if ko.events and ko.events[-1][0] == DUEL_T - 1 else 1)
+          and rearm_launches == promoting_steps
+          and hold.calls == promoting_steps and hold.equal and held_carry)
     if not ok:
         raise RuntimeError(f"kernel F disagrees with the plain scan: {res}")
-    return res
+
+    # the re-arm: device time a call over the window's re-arms, beside
+    # the mean of their bounds; CUDA-event time and the plain version's
+    # on the window's first re-arm's inputs
+    args = hold.first
+    kernel = nd.duel_rearm_cuda
+    r_ms = cuda_ms(torch, lambda: kernel(*args), 20)
+    r_plain = cuda_ms(torch, lambda: duel_rearm_ref(*args), 3)
+    bounds = [_rearm_bound(args, p_, d_)
+              for p_, d_ in zip(hold.promoted, hold.dirty)]
+    r_bms = float(np.mean([b[0] for b in bounds]))
+    r_by = max({b[1] for b in bounds}, key=[b[1] for b in bounds].count)
+    r_dev = dev_r["device_ms"] / max(rearm_launches, 1)
+    rearm = dict(name="duel_rearm", O=cat.n, D=D, K=K, I=I,
+                 launches=rearm_launches, rearms_held=hold.summary(),
+                 max_abs_err=0.0 if hold.equal else None,
+                 ms=r_ms, plain_ms=r_plain,
+                 first_promoted=hold.promoted[0],
+                 first_dirty_rows=hold.dirty[0],
+                 first_bound_ms=bounds[0][0], device_ms=r_dev,
+                 kernels_per_call=dev_r["launches_per_call"] / max(
+                     rearm_launches, 1),
+                 bound_ms=r_bms, bound_by=r_by, bound_share=r_bms / r_dev,
+                 library_ms=None)
+    log("duel_rearm", **rearm)
+    return res, rearm
 
 
 def phase_duel_engine(torch, params):
@@ -1828,8 +1964,12 @@ def phase_duel_engine(torch, params):
     just before and read just after. Every batch each duel plane observed
     (objects, the lookup's b1 at the bucket shape, n_valid) is recorded;
     outside the counted run each plane's batches are replayed through a
-    second ``DuelPlane`` on the plain scan, whose carry must equal the
-    engine plane's bitwise."""
+    second ``DuelPlane`` on the plain scan (torch re-arms), whose carry
+    must equal the engine plane's bitwise, and through a third on kernel
+    F with every re-arm held bitwise against the torch re-arm on the
+    same inputs (``RearmHold``)."""
+    import importlib
+    nd = importlib.import_module("repro_torch.core.placement.netduel")
     from repro_torch.configs.registry import get_config
     from repro_torch.core import catalog as catalog_api
     from repro_torch.core import demand as demand_api
@@ -1882,17 +2022,23 @@ def phase_duel_engine(torch, params):
     t = time.perf_counter()
     for rec in planes:
         p = rec["plane"]
-        twin = DuelPlane(p.dinst, rec["slots0"], window=ecfg.duel_window,
-                         delta=ecfg.duel_delta, arm_prob=ecfg.duel_arm_prob,
-                         seed=ecfg.duel_seed, plain=True)
-        for objs, b1, n_valid in rec["batches"]:
-            twin.observe(objs, b1_ext=b1, n_valid=n_valid)
+        kw = dict(window=ecfg.duel_window, delta=ecfg.duel_delta,
+                  arm_prob=ecfg.duel_arm_prob, seed=ecfg.duel_seed)
+        twin = DuelPlane(p.dinst, rec["slots0"], plain=True, **kw)
+        again = DuelPlane(p.dinst, rec["slots0"], **kw)
+        with RearmHold(torch, nd) as hold:
+            for objs, b1, n_valid in rec["batches"]:
+                twin.observe(objs, b1_ext=b1, n_valid=n_valid)
+                again.observe(objs, b1_ext=b1, n_valid=n_valid)
         held.append(dict(
             batches=len(rec["batches"]), promotions=p.n_promotions,
             carry_bitwise=all(torch.equal(a, b)
                               for a, b in zip(p.carry, twin.carry)),
             served_equal=p.served_cost == twin.served_cost,
-            t_equal=p.t == twin.t))
+            t_equal=p.t == twin.t,
+            rearms_held=hold.summary(),
+            kernel_replay_bitwise=all(torch.equal(a, b) for a, b in
+                                      zip(p.carry, again.carry))))
     replay_s = time.perf_counter() - t
     res = dict(model=cfg.name, n_layers=cfg.n_layers, catalog=cat.n,
                streams=len(streams), duel_window=ecfg.duel_window,
@@ -1917,7 +2063,10 @@ def phase_duel_engine(torch, params):
               w.mean_cost < ecfg.h_model, not eng.refresh_in_flight,
               any(h["batches"] for h in held),
               all(h["carry_bitwise"] and h["served_equal"] and h["t_equal"]
-                  for h in held)]
+                  and h["kernel_replay_bitwise"]
+                  and h["rearms_held"]["bitwise"] for h in held),
+              counts["duel_rearm"] == sum(h["rearms_held"]["calls"]
+                                          for h in held) > 0]
     if not all(checks):
         raise RuntimeError(f"duel_engine phase failed its checks: {checks}")
     return counts
@@ -3183,7 +3332,7 @@ def main() -> int:
     sharded_lookup = phase_sharded_lookup(torch, big,
                                           compress.pop("plane"))
     del big
-    f = phase_duel(torch, cat, dem, clock_hz)
+    f, f_rearm = phase_duel(torch, cat, dem, clock_hz)
     counts, params, cascade = phase_engine(torch, cat, dem)
     warm_counts = phase_warmstart(torch, cat, dem, params, cascade)
     del params
@@ -3207,6 +3356,7 @@ def main() -> int:
     counts["greedy_gain"] = d["launches"]         # its entry point's run
     counts["flash_attention"] = stream_counts["flash_attention"]
     counts["duel_scan"] = duel_counts["duel_scan"]  # the online plane's run
+    counts["duel_rearm"] = duel_counts["duel_rearm"]
 
     sources = {"fused_lookup": ("src/repro_torch/kernels/csrc/knn.cu",
                                 "src/repro/kernels/knn/knn.py:88"),
@@ -3220,13 +3370,15 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/flash.cu",
                    "src/repro/kernels/flash_attention/flash.py:36"),
                "duel_scan": ("src/repro_torch/kernels/csrc/duel.cu",
-                             "src/repro/core/placement/netduel.py:215")}
+                             "src/repro/core/placement/netduel.py:215"),
+               "duel_rearm": ("src/repro_torch/kernels/csrc/duel.cu",
+                              "src/repro/core/placement/netduel.py:254")}
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     shapes = {"fused_lookup": (a, a_big), "knn": (b, b_big),
               "placement_gains": (c, c_stream)}
     kernels = []
-    for r in (a, b, c, d, e, f):
+    for r in (a, b, c, d, e, f, f_rearm):
         src, repl = sources[r["name"]]
         kernels.append(dict(
             name=r["name"], route="cuda", source=src, replaces=repl,
@@ -3263,6 +3415,9 @@ def main() -> int:
                                   "device_ms", "bound_ms")})
         for g in groups if g["kernel"] == "C"]
     kernels[5]["device_ms"] = f["kernel_device_ms"]
+    kernels[5]["chain_floor_share"] = f["chain_floor_share"]
+    for k, r in ((kernels[5], f), (kernels[6], f_rearm)):
+        k["launches_duel"] = r["launches"]     # the `duel` phase's run
     # item 10's torch paths (XLA in the reference, no Pallas kernel), each
     # beside the exact path it sits in front of
     xla_paths = compress["xla"] + [lb_gains, cand_ca]

@@ -38,13 +38,16 @@ contract between the host policy and the device scan:
   across ``serve()`` batches, each batch observed in one scan, priced
   by the costs the fused lookup just computed (``b1_ext``).
 
-A promotion re-arms the tables through ``DeviceInstance.best_two_delta``
-when at most ``PROMOTE_CAP`` slots promote at once, else by a full
-rebuild (``best_two_tables``); both give the full rebuild's bits. On a
-``DeviceInstance`` that shards (``mesh``, ``axes``) the full rebuild
-shards the request axis (``objective.sharded_best_two_tables``), as the
-reference's does; the scan itself and the dirty-row recompute stay
-unsharded, as there.
+A promotion re-arms the tables (``_rearm``). Through kernel F the
+incremental re-arm is F's second entry (``duel_rearm_cuda``), any
+number of promoted slots in one launch. The plain scan, and a
+``DeviceInstance`` that shards (``mesh``, ``axes``), take its plain
+version: ``best_two_delta`` when at most ``PROMOTE_CAP`` slots promote
+at once, else a full rebuild (``best_two_tables``). All give the full
+rebuild's bits. A sharded instance's full rebuild shards the request
+axis (``objective.sharded_best_two_tables``), as the reference's does;
+the scan itself and the dirty-row recompute stay unsharded, as there.
+``incremental=False`` re-arms by the full rebuild, in torch ops.
 """
 from __future__ import annotations
 
@@ -58,7 +61,9 @@ import torch
 from repro_torch.core.objective import (DeviceInstance, Instance,
                                         fold_best_two)
 from repro_torch.core.placement.localswap import SwapState, emulated_stream
-from repro_torch.kernels.duel.duel import DuelXs, duel_scan_cuda
+from repro_torch.kernels.duel.duel import (PROMOTE_CAP, DuelXs,
+                                          duel_rearm_cuda, duel_rearm_ref,
+                                          duel_scan_cuda)
 from repro_torch.kernels.knn.gains import duel_virtual_costs
 
 F32_ZERO = np.float32(0.0)
@@ -186,11 +191,6 @@ class DeviceDuelState:
     cost_trace: list
 
 
-# Slots a settle step may promote and still re-arm incrementally; more
-# promotions at once take the full rebuild.
-PROMOTE_CAP = 8
-
-
 class DuelCarry(NamedTuple):
     """The scan carry: the allocation, the pre-fold best-two tables (the
     witnesses the incremental re-arm keys on), the serving tables, and
@@ -227,21 +227,24 @@ def _duel_carry(dinst: DeviceInstance, slots: np.ndarray) -> DuelCarry:
 
 
 def _rearm(dinst: DeviceInstance, slots_new: torch.Tensor,
-           promote: torch.Tensor, pre: tuple, incremental: bool) -> tuple:
+           promote: torch.Tensor, pre: tuple, incremental: bool,
+           kernel: bool = False) -> tuple:
     """Pre-fold and serving tables after a settle wrote ``promote``:
-    the incremental refresh when at most ``PROMOTE_CAP`` slots changed,
-    else the full rebuild; bitwise the same tables either way."""
-    if incremental:
-        ys = torch.nonzero(promote).reshape(-1)
-        if ys.numel() > PROMOTE_CAP:
-            npre = dinst.best_two_tables(slots_new)
-        else:
-            K = promote.shape[0]
-            ys = torch.cat([ys, ys.new_full((PROMOTE_CAP - ys.numel(),), K)])
-            npre = dinst.best_two_delta(*pre, slots_new, ys)
-    else:
+    the incremental re-arm, through kernel F's second entry (``kernel``,
+    on an unsharded instance) or its plain version; with
+    ``incremental=False`` the full rebuild. Bitwise the same tables
+    every way."""
+    if not incremental:
         npre = dinst.best_two_tables(slots_new)
-    return (*npre, *fold_best_two(npre[0], npre[1], npre[2], dinst.h_repo))
+        return (*npre, *fold_best_two(npre[0], npre[1], npre[2],
+                                      dinst.h_repo))
+    coords, ca, metric, gamma, _ = dinst._ca_args()
+    args = (pre, slots_new, promote, dinst.slot_cache, dinst.H,
+            dinst.h_repo, coords, ca, metric, gamma)
+    mesh, axes = dinst._shard_args()
+    if kernel and mesh is None:
+        return duel_rearm_cuda(*args)
+    return duel_rearm_ref(*args, mesh=mesh, axes=axes)
 
 
 class ScanOut(NamedTuple):
@@ -338,14 +341,18 @@ def _duel_scan_kernel(dinst: DeviceInstance, h_slots, carry: DuelCarry,
                       timings: dict | None = None
                       ) -> tuple[DuelCarry, ScanOut]:
     """The scan through kernel F: one launch runs the steps up to the
-    next promotion and settles it; the host then re-arms the tables
-    (:func:`_rearm`) and launches from the step after. The re-arm of
-    step t reads only the slots and the pre-fold tables, which nothing
-    after step t's slot writes changes, and step t + 1 runs after it:
-    the reference's order. The cost trace is C(A) once per table
-    version, at the record points where that version served.
-    ``timings`` (a dict) receives the re-arms' seconds (``rearm_s``,
-    the device synchronized around each) and their count."""
+    next promotion and settles it; the re-arm (:func:`_rearm`, F's
+    second entry) follows on the same stream, and the steps launch again
+    from the step after. The re-arm of step t reads only the slots, the
+    promote flags and the pre-fold tables, which nothing after step t's
+    slot writes changes, and step t + 1 runs after it: the reference's
+    order. A promotion costs one launch of the steps, one read of the
+    stopping step and one launch of the re-arm; nothing else waits for
+    the card, apart from ``record_every``'s C(A) and ``timings``. The
+    cost trace is C(A) once per table version, at the record points
+    where that version served. ``timings`` (a dict) receives the
+    re-arms' seconds (``rearm_s``, the device synchronized around each)
+    and their count."""
     coords, ca, metric, gamma, _ = dinst._ca_args()
     (slots, b1p, a1p, b2p, a2p, best1, arg1, best2,
      virt, rs, vs, deadline, n_prom) = carry
@@ -369,14 +376,14 @@ def _duel_scan_kernel(dinst: DeviceInstance, h_slots, carry: DuelCarry,
                               state, xs, s, one_delta, window, out, event)
         if stop >= T:
             break
-        promote = event[0].clone()
         if record_events:
-            events.append((stop, promote, *(e.clone() for e in event[1:])))
+            events.append((stop, *(e.clone() for e in event)))
         if timings is not None:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-        new = _rearm(dinst, state[0], promote, pre, incremental)
+        new = _rearm(dinst, state[0], event[0], pre, incremental,
+                     kernel=True)
         pre, tables = new[:4], new[4:]
         if timings is not None:
             if dev.type == "cuda":

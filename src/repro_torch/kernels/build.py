@@ -54,7 +54,9 @@ SIGNATURES = {
     },
     "duel.cu": {
         "simcache_duel_scan": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _I,
-                               *[_P] * 13, _I, _I, _F, _L, *[_P] * 7],
+                               _I, *[_P] * 13, _I, _I, _F, _L, *[_P] * 7],
+        "simcache_duel_rearm": [_P, _P, _I, _I, _I, _F, *[_P] * 9, _I, _I,
+                                _I, *[_P] * 9],
     },
 }
 

@@ -1,21 +1,29 @@
-"""The NETDUEL duel scan between promotions: the wrapper of kernel F.
+"""The NETDUEL duel scan between promotions and its re-arm: the
+wrappers of kernel F's two entries.
 
-Kernel F (``simcache_duel_scan`` in ``kernels/csrc/duel.cu``) replaces
-``_duel_scan`` of ``repro/core/placement/netduel.py``, an XLA
-``lax.scan`` over the request window (no Pallas kernel): one thread
-block walks the window's steps in order, the duel carry in device
-memory, and gives control back at the first step that promotes. That
-step's whole settle (the slot writes, the clears, the arm) is done, its
-event is in the event buffers, and the host re-arms the serving tables
-and launches again from the next step (core/placement/netduel.py). A
-window without a promotion is one launch.
+Kernel F (``kernels/csrc/duel.cu``) replaces ``_duel_scan`` of
+``repro/core/placement/netduel.py``, an XLA ``lax.scan`` over the
+request window (no Pallas kernel). Its first entry,
+``simcache_duel_scan``, walks the window's steps in order in one thread
+block, the duel carry on chip, and gives control back at the first step
+that promotes. That step's whole settle (the slot writes, the clears,
+the arm) is done and its event is in the event buffers. Its second
+entry, ``simcache_duel_rearm``, is the scan's ``rearm`` closure
+(``netduel.py:254``): the pre-fold and serving best-two tables after the
+slot writes, on the card, with no host sync. The host then launches the
+steps again from the next one (core/placement/netduel.py). A window
+without a promotion is one launch.
 
-:func:`duel_scan_cuda` launches F for CUDA tensors and runs the plain
-version, :func:`duel_steps_ref`, for CPU tensors: the same steps in
-torch ops, updating the same tensors in place. ``duel_scan_cuda.
-launches`` counts kernel launches and nothing else.
+:func:`duel_scan_cuda` launches the steps for CUDA tensors and runs the
+plain version, :func:`duel_steps_ref`, for CPU tensors: the same steps
+in torch ops, updating the same tensors in place.
+:func:`duel_rearm_cuda` launches the re-arm for CUDA tensors and runs
+its plain version, :func:`duel_rearm_ref` (the incremental refresh
+``best_two_delta`` or, past ``PROMOTE_CAP`` promotions, the full
+rebuild, then the fold), for CPU tensors. Each wrapper's ``launches``
+counts its kernel's launches and nothing else.
 
-The arguments, shared by both:
+The arguments of the steps:
 
 * ``tables`` — the serving tables (best1 f32, arg1 int64, best2 f32),
   each (I, O); read only.
@@ -40,7 +48,10 @@ import torch
 from repro_torch.kernels.build import LIBRARY, check, stream_ptr
 from repro_torch.kernels.knn.knn import _metric_id
 
-MAX_THREADS = 1024       # one block; a thread owns a run of slots
+# Slots a settle step may promote and still re-arm through the plain
+# version's incremental refresh; more promotions at once take its full
+# rebuild. The kernel's re-arm takes any number the same way.
+PROMOTE_CAP = 8
 
 
 class DuelXs(NamedTuple):
@@ -166,14 +177,14 @@ def duel_scan_cuda(coords, ca, metric: str, gamma: float, tables, h_slots,
                               event)
     _check_args(coords, ca, tables, h_slots, state, xs, out, event)
     O, D = coords.shape
-    K = h_slots.shape[1]
+    I, K = h_slots.shape
     T = xs.objs.shape[0]
     if not 0 <= t_begin < T:
         raise ValueError(f"kernel F: step {t_begin} outside [0, {T})")
     stop = torch.empty(1, dtype=torch.int32, device=coords.device)
     check(LIBRARY.fn("simcache_duel_scan")(
         coords.data_ptr(), _ptr(ca), O, D, _metric_id(metric), float(gamma),
-        *(t.data_ptr() for t in tables), h_slots.data_ptr(), K,
+        *(t.data_ptr() for t in tables), h_slots.data_ptr(), I, K,
         *(t.data_ptr() for t in state),
         *(t.data_ptr() for t in xs[:5]), _ptr(xs.b1_ext), _ptr(xs.valid),
         t_begin, T, float(one_delta), int(window), out.data_ptr(),
@@ -184,3 +195,92 @@ def duel_scan_cuda(coords, ca, metric: str, gamma: float, tables, h_slots,
 
 
 duel_scan_cuda.launches = 0
+
+
+def duel_rearm_ref(pre, slots_new, promote, slot_cache, H, h_repo, coords,
+                   ca, metric: str, gamma: float, mesh=None,
+                   axes: tuple = ()) -> tuple:
+    """Plain version of the re-arm: the pre-fold tables (b1, a1, b2, a2)
+    after a settle wrote the ``promote`` slots of ``slots_new``, by the
+    incremental refresh (``objective.best_two_delta``, its dirty-row cap
+    ``default_delta_cap``) when at most ``PROMOTE_CAP`` slots promoted,
+    else by the full rebuild; then the serving tables (best1, arg1,
+    best2) by the fold. Bitwise the full rebuild folded either way. With
+    ``mesh`` the full rebuilds shard the request axis, as
+    ``DeviceInstance``'s do."""
+    from repro_torch.core.objective import (_best_two_rows_pre,
+                                            best_two_delta,
+                                            default_delta_cap,
+                                            fold_best_two,
+                                            sharded_best_two_tables)
+    has_ca = ca is not None
+    K = promote.shape[0]
+    ys = torch.nonzero(promote).reshape(-1)
+    if ys.numel() > PROMOTE_CAP:
+        if mesh is not None:
+            npre = sharded_best_two_tables(coords, ca, slots_new, slot_cache,
+                                           H, mesh, axes, metric, gamma,
+                                           has_ca)
+        else:
+            npre = _best_two_rows_pre(
+                ca if has_ca else coords,
+                None if has_ca else coords[slots_new.clamp_min(0)],
+                slots_new, slot_cache, H, metric, gamma, has_ca)
+    else:
+        ys = torch.cat([ys, ys.new_full((PROMOTE_CAP - ys.numel(),), K)])
+        n_obj = (ca if has_ca else coords).shape[0]
+        npre = best_two_delta(coords, ca, *pre, slots_new, ys, slot_cache,
+                              H, metric, gamma, has_ca,
+                              cap=default_delta_cap(n_obj), mesh=mesh,
+                              axes=axes)
+    return (*npre, *fold_best_two(npre[0], npre[1], npre[2], h_repo))
+
+
+def _check_rearm(pre, slots_new, promote, slot_cache, H, h_repo, coords, ca):
+    """Refuse what the re-arm does not take (as :func:`_check_args`)."""
+    dev = coords.device
+    I, O = pre[0].shape
+    K = slots_new.shape[0]
+    f32, i64, b8 = torch.float32, torch.int64, torch.bool
+    want = [(pre[0], f32, (I, O)), (pre[1], i64, (I, O)),
+            (pre[2], f32, (I, O)), (pre[3], i64, (I, O)),
+            (slots_new, i64, (K,)), (promote, b8, (K,)),
+            (slot_cache, i64, (K,)), (H, f32, (I, H.shape[1])),
+            (h_repo, f32, (I,))]
+    want.append((ca, f32, (O, O)) if ca is not None
+                else (coords, f32, (O, coords.shape[1])))
+    for n, (t, dt, shape) in enumerate(want):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"re-arm argument {n}: want {dt} {shape} "
+                             f"contiguous on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def duel_rearm_cuda(pre, slots_new, promote, slot_cache, H, h_repo, coords,
+                    ca, metric: str, gamma: float) -> tuple:
+    """Kernel F's second entry: the re-arm after a promoting step, one
+    call, no host sync. Returns new tensors (b1, a1, b2, a2, best1,
+    arg1, best2), bitwise :func:`duel_rearm_ref`'s for any number of
+    promoted slots; the inputs are not written."""
+    if not coords.is_cuda:
+        return duel_rearm_ref(pre, slots_new, promote, slot_cache, H,
+                              h_repo, coords, ca, metric, gamma)
+    _check_rearm(pre, slots_new, promote, slot_cache, H, h_repo, coords, ca)
+    I, O = pre[0].shape
+    K, J, D = slots_new.shape[0], H.shape[1], coords.shape[1]
+    dev = coords.device
+    out = [torch.empty((I, O), dtype=t.dtype, device=dev)
+           for t in (*pre, *pre[:3])]
+    scratch = torch.empty(O + 1, dtype=torch.int32, device=dev)
+    check(LIBRARY.fn("simcache_duel_rearm")(
+        coords.data_ptr(), _ptr(ca), O, D, _metric_id(metric), float(gamma),
+        *(t.data_ptr() for t in pre), slots_new.data_ptr(),
+        promote.data_ptr(), slot_cache.data_ptr(), H.data_ptr(),
+        h_repo.data_ptr(), I, K, J, *(t.data_ptr() for t in out),
+        scratch.data_ptr(), stream_ptr(coords)), "simcache_duel_rearm")
+    duel_rearm_cuda.launches += 1
+    return tuple(out)
+
+
+duel_rearm_cuda.launches = 0

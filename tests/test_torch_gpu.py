@@ -785,6 +785,187 @@ def test_duel_kernel_settle_past_promote_cap(cuda, materialize):
         assert torch.equal(out.b1, o2.b1)
 
 
+
+def _f_case(cuda, K, D, metric, materialize, masked, I=2, seed=0, O=3000,
+            T=1200):
+    """Raw inputs of kernel F: a random layout's serving tables, I
+    ingresses (the second off the path of the second cache), a skewed
+    window of T requests, window 60, so that duels promote."""
+    from repro_torch.core.objective import _best_two_rows_pre, fold_best_two
+    from repro_torch.kernels.duel import DuelXs
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    i64 = dict(dtype=torch.int64, device=cuda)
+    coords = torch.as_tensor(rng.standard_normal((O, D)), **f32)
+    ca = costs.approx_cost(coords, coords, metric).contiguous() \
+        if materialize else None
+    slots = torch.as_tensor(rng.integers(0, O, K), **i64)
+    slot_cache = torch.arange(K, device=cuda) % 2
+    H = torch.tensor([[0.5, 3.0], [np.inf, 1.0]] +
+                     [[0.5 + j, 3.0 - 0.1 * j] for j in range(I - 2)], **f32)
+    pre = _best_two_rows_pre(ca if materialize else coords,
+                             None if materialize else coords[slots],
+                             slots, slot_cache, H, metric, 1.0, materialize)
+    h_repo = torch.full((I,), 2.0 * D ** 0.5, **f32)
+    tables = tuple(t.contiguous() for t in fold_best_two(
+        pre[0], pre[1], pre[2], h_repo))
+    h_slots = H[:, slot_cache].contiguous()
+    objs = np.minimum(rng.zipf(1.3, T), O) - 1
+    b1 = tables[0][0, torch.as_tensor(objs, device=cuda)] * 1.01
+    xs = DuelXs(torch.as_tensor(objs, **i64),
+                torch.as_tensor(rng.integers(0, I, T), **i64),
+                torch.arange(T, **i64),
+                torch.as_tensor(rng.random(T) < 0.5, device=cuda),
+                torch.as_tensor(rng.random(T), **f32),
+                b1.contiguous() if masked else None,
+                torch.as_tensor(rng.random(T) < 0.9, device=cuda)
+                if masked else None)
+    state = (slots, torch.full((K,), -1, **i64), torch.zeros(K, **f32),
+             torch.zeros(K, **f32), torch.zeros(K, **i64),
+             torch.zeros(1, **i64))
+    return coords, ca, tables, h_slots, state, xs
+
+
+def _f_run(fn, coords, ca, metric, tables, h_slots, state0, xs, t0):
+    """Launch F (or its plain version) from ``t0`` again and again, from
+    the step after each promotion, the tables fixed: every stop, every
+    event and the final state and served costs."""
+    K, T = h_slots.shape[1], xs.objs.shape[0]
+    dev = coords.device
+    state = tuple(t.clone() for t in state0)
+    out = torch.zeros(T, dtype=torch.float32, device=dev)
+    event = (torch.zeros(K, dtype=torch.bool, device=dev),
+             torch.zeros(K, dtype=torch.int64, device=dev),
+             torch.zeros(K, dtype=torch.float32, device=dev),
+             torch.zeros(K, dtype=torch.float32, device=dev))
+    stops, events, s = [], [], t0
+    while s < T:
+        stop = fn(coords, ca, metric, 1.0, tables, h_slots, state, xs, s,
+                  float(np.float32(1.05)), 60, out, event)
+        stops.append(stop)
+        if stop >= T:
+            break
+        events.append(tuple(e.clone() for e in event))
+        s = stop + 1
+    return stops, events, state, out
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
+@pytest.mark.parametrize("K,D,materialize,masked,t0,I", [
+    (1300, 24, False, False, 0, 2),   # K > 992: runs, carry in shared memory
+    (1000, 16, False, False, 0, 2),   # runs just past one thread a slot
+    (8000, 3, False, False, 0, 2),    # runs, carry in device memory
+    (2500, 8, False, True, 0, 6),     # h_slots read from device memory
+    (8000, 3, False, False, 0, 4),    # ... and the carry too
+    (448, 200, False, False, 0, 2),   # K·D too large for the resident rows
+    (448, 37, False, True, 0, 2),     # rows not 16-byte aligned
+    (448, 3, False, False, 0, 2),
+    (77, 24, False, False, 0, 2),     # K not a multiple of 32
+    (77, 24, True, True, 0, 2),       # materialized C_a
+    (1300, 24, True, False, 5, 2),    # runs, materialized, mid-ring start
+    (448, 100, False, True, 13, 2),   # the engine's shape, mid-ring start
+    (448, 24, False, False, 0, 10),   # h_slots resident, 10 ingresses
+    (77, 24, False, True, 3, 10),     # ... K % 4 != 0
+])
+def test_duel_kernel_bitwise_plain_steps(cuda, metric, K, D, materialize,
+                                         masked, t0, I):
+    """Kernel F against its plain version, ``duel_steps_ref``, launch by
+    launch: the stopping steps, each promoting step's event, the carry
+    and the served costs, bitwise, at each shape its design handles
+    apart (registers or runs of slots, carry and h_slots rows on chip or
+    not, resident or device rows, 16- or 4-byte staging) and from a
+    step that is not the ring's first."""
+    from repro_torch.kernels.duel import duel_scan_cuda, duel_steps_ref
+    coords, ca, tables, h_slots, state, xs = _f_case(cuda, K, D, metric,
+                                                     materialize, masked, I)
+    n0 = duel_scan_cuda.launches
+    got = _f_run(duel_scan_cuda, coords, ca, metric, tables, h_slots, state,
+                 xs, t0)
+    assert duel_scan_cuda.launches - n0 == len(got[0])
+    want = _f_run(duel_steps_ref, coords, ca, metric, tables, h_slots, state,
+                  xs, t0)
+    assert got[0] == want[0]
+    assert len(got[0]) > 2                       # duels promoted
+    for eg, ew in zip(got[1], want[1]):
+        for a, b in zip(eg, ew):
+            assert torch.equal(_bits(a), _bits(b))
+    for a, b in zip((*got[2], got[3]), (*want[2], want[3])):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("case", ["1", "3", "8", "9", "dirty", "20"])
+@pytest.mark.parametrize("materialize", [True, False])
+@pytest.mark.parametrize("gamma", [1.0, 0.5, 2.0, 1.7])
+@pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
+def test_duel_rearm_kernel_matches_plain(cuda, metric, gamma, materialize,
+                                         case):
+    """Kernel F's re-arm against its plain version on the card, bitwise,
+    over the CPU differential's cases (tests/rearm_cases.py) and twenty
+    promoted slots; one launch a call, the inputs untouched."""
+    from rearm_cases import rearm_args, rearm_case
+    from repro_torch.kernels.duel import duel_rearm_cuda, duel_rearm_ref
+    c = rearm_case(metric, gamma, materialize, case, device=cuda)
+    before = [t.clone() for t in c["pre"]]
+    n0 = duel_rearm_cuda.launches
+    got = duel_rearm_cuda(*rearm_args(c))
+    assert duel_rearm_cuda.launches - n0 == 1
+    want = duel_rearm_ref(*rearm_args(c))
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    for a, b in zip(before, c["pre"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["1", "9", "dirty", "20"])
+@pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
+def test_duel_rearm_kernel_at_width(cuda, metric, case):
+    """The re-arm at the engine's width (D 100, 20,000 objects, normal
+    coordinates: the first pass's staged tiles, many blocks, the dirty
+    pass's staged keys), bitwise its plain version."""
+    from rearm_cases import rearm_args, rearm_case
+    from repro_torch.kernels.duel import duel_rearm_cuda, duel_rearm_ref
+    c = rearm_case(metric, 1.0, False, case, device=cuda, n=20_000,
+                   dim=100, integer=False)
+    for a, b in zip(duel_rearm_cuda(*rearm_args(c)),
+                    duel_rearm_ref(*rearm_args(c))):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("case", ["1", "dirty", "20"])
+@pytest.mark.parametrize("metric", ["l1", "l2", "l2sq"])
+def test_duel_rearm_kernel_at_shared_memory_limit(cuda, metric, case):
+    """999 slots at D 57: the dirty pass's staged slot keys and its
+    other dynamic arrays come to 232,012 B, within the card's 232,448 B
+    opt-in limit alone but not beside the pass's 512 B of static shared
+    arrays; the kernel reads the keys from device memory there, bitwise
+    its plain version."""
+    from rearm_cases import rearm_args, rearm_case
+    from repro_torch.kernels.duel import duel_rearm_cuda, duel_rearm_ref
+    c = rearm_case(metric, 1.0, False, case, device=cuda, dim=57, per=333)
+    assert c["slots_new"].shape[0] == 999
+    for a, b in zip(duel_rearm_cuda(*rearm_args(c)),
+                    duel_rearm_ref(*rearm_args(c))):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("materialize", [True, False])
+def test_duel_window_rearms_through_the_kernel(cuda, materialize):
+    """``device_netduel`` on the card: one re-arm launch per promoting
+    step, and the whole window bitwise the plain scan (whose re-arms are
+    torch ops)."""
+    from repro_torch.kernels.duel import duel_rearm_cuda
+    inst = _duel_instance("l1", n=800)
+    d = DeviceInstance.from_instance(inst, materialize_ca=materialize,
+                                     device=cuda)
+    kw = dict(n_iters=2500, seed=4, window=250, arm_prob=0.4,
+              record_events=True)
+    n0 = duel_rearm_cuda.launches
+    got = device_netduel(d, **kw)
+    steps = len({e[0] for e in got.promotions})
+    assert steps > 0 and duel_rearm_cuda.launches - n0 == steps
+    _assert_duel_bitwise(got, device_netduel(d, plain=True, **kw))
+
+
 # ------------------------------------- the Che hit-rate plane on the card
 def _che_case(n=2000):
     """A 2,000-object catalog rescaled by the reference bench's rule
