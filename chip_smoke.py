@@ -116,6 +116,18 @@ Phases, one line each before the last:
    logit agreement, both times, kernel E's launches per flash forward
    (one per layer); and once more in f32 at B = 1, S = 512, where the
    two attentions must agree to f32 rounding.
+   Then ``generate``: ``greedy_generate`` (prefill, padded cache, serve
+   steps) on those weights at full depth, B 4, a 512-token prompt, 32
+   new tokens, in f32 (flash off), bf16 (flash on: E in the prefill)
+   and bf16 with the int8 KV cache; the same loops step by step for the
+   holds: f32 logits against the teacher-forced full forward to 1e-3
+   and its argmax off near-ties, bf16 against the bf16 full forward
+   within what bf16 moves the f32 one, int8 against the bf16-cache
+   decode within the move of a decode whose cache is shifted by the
+   int8 step; E held against its plain versions and timed beside SDPA
+   on the layer-0 Q/K/V of the counted bf16 call (B 4, S 512, H 32, KH
+   8, Dh 64); prefill and step times, tokens/s, cache bytes and the
+   step's bound.
 8. ``stream`` — ``SimCacheEngine`` at full width with
    ``use_flash_attention=True`` in front of a 20,000-object catalog,
    driven by ``StreamDriver`` (4 Zipf streams): a cold run, a
@@ -168,6 +180,13 @@ Phases, one line each before the last:
    no swap), a drift to uniform demand (``set_streams``) triggering a
    solve that swaps in; the surrogate's time a call; launches counted
    over the phase.
+   Then ``generate_wide``: phi3-medium-14b at full width and depth,
+   deepseek-coder-33b and deepseek-67b at full width cut to 8 layers
+   (B 2, a 1,024-token prompt): a counted bf16 ``greedy_generate`` with
+   E in its prefill, E held against its plain versions and timed beside
+   SDPA on the first layer's Q/K/V (Dh 128; 4, 7 and 8 query heads a KV
+   head), the prefill and decode step times, an f32 decode held against
+   the f32 full forward, and peak memory.
 9. ``launch`` — ``python -m repro_torch.launch.serve`` in a subprocess,
    batch loop, streaming, streaming with ``--netduel``, the batch loop
    with ``--warm-start``, and ``--scenario scale_free --strategy lce``
@@ -182,9 +201,11 @@ Phases, one line each before the last:
    ``launches_duel``; A's entry also carries
    its launches in the ``warmstart`` run, C's and E's their launches in
    the ``scenario`` runs, and every entry its launches in the ``gate``
-   run; A's also its launches over the ``compress`` runs; A's and C's
-   their launches in the sharded phases (``launches_sharded``), and A's
-   the hold of its shard-local entry (``shard_local_hold``). Beside the
+   run; E's its launches in the ``greedy_generate`` calls of
+   ``generate`` and ``generate_wide`` (``launches_generate``); A's also
+   its launches over the ``compress`` runs; A's and C's their launches
+   in the sharded phases (``launches_sharded``), and A's the hold of its
+   shard-local entry (``shard_local_hold``). Beside the
    kernels, ``xla_paths``: item 10's torch paths (``_quantized_select``,
    ``candidate_matrix`` + ``candidate_union``, ``_lb_gains_tiles``,
    ``_cand_ca``; XLA in the reference), each timed beside the exact path
@@ -1468,10 +1489,10 @@ FLASH_SHAPES = ((1, 4096), (4, 2048), (2, 1000),
                 (128, 128), (256, 128))
 
 
-def phase_kernel_e(torch, clock_hz: float):
-    """Kernel E in bf16 at granite-3-2b's attention shape (H 32, KH 8,
-    Dh 64), causal, at each (B, S) of ``FLASH_SHAPES``, on the tensor
-    cores.
+def hold_kernel_e(torch, q, k, v, clock_hz: float) -> dict:
+    """Kernel E in bf16 on (q, k, v) (B, S, H, Dh) / (B, S, KH, Dh),
+    causal, on the tensor cores, held against its plain versions and
+    timed beside them and SDPA.
 
     Against ``flash_ref`` (the exact f32 softmax, output rounded once to
     bf16), the kernel has two roundings: each p to bf16 before the PV
@@ -1492,12 +1513,70 @@ def phase_kernel_e(torch, clock_hz: float):
     Reported beside the time: achieved TFLOP/s, the share of the bound
     (operations at the bf16 peak), the exponential floor (the causal
     B·H·S·(S+1)/2 exponentials at 16 per clock per SM on 132 SMs, at the
-    card's maximum SM clock) and SDPA's time."""
+    card's maximum SM clock) and SDPA's time. Raises if a hold fails."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_blocked,
                                                      flash_cuda, flash_ref)
     from repro_torch.kernels.flash_attention.ref import P_REL
+    B, S, H, Dh = q.shape
+    KH = k.shape[2]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    got = flash_cuda(q, k, v, causal=True)
+    ref = flash_ref(q, k, v, causal=True)
+    abs_v = flash_ref(q.float(), k.float(), v.float().abs(), causal=True)
+    blk, slack = flash_blocked(q, k, v, causal=True,
+                               p_dtype=torch.bfloat16, p_rel=P_REL)
+    lib = sdpa()
+    torch.cuda.synchronize()
+    got32, ref32, blk32 = got.float(), ref.float(), blk.float()
+    err = (got32 - ref32).abs()
+    tol = 2.0 ** -7 * ref32.abs() + 2.0 ** -7 * abs_v + 1e-4
+    err_b = (got32 - blk32).abs()
+    tol_b = 2.0 ** -7 * blk32.abs() + slack + 1e-4
+    ok = (bool((err <= tol).all()) and bool((err_b <= tol_b).all())
+          and got.dtype == torch.bfloat16)
+    ms = cuda_ms(torch, lambda: flash_cuda(q, k, v, causal=True), 20)
+    plain = cuda_ms(torch, lambda: flash_ref(q, k, v, causal=True), 3)
+    lib_ms = cuda_ms(torch, sdpa, 20)
+    flops = 4 * Dh * H * B * S * (S + 1) / 2      # causal QK^T and PV
+    n_bytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
+    bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+    n_exp = B * H * S * (S + 1) / 2
+    res = dict(name="flash_attention", B=B, S=S, H=H, KH=KH, Dh=Dh,
+               dtype="bfloat16", causal=True,
+               max_abs_err=float(err.max()),
+               max_rel_err=float((err / ref32.abs().clamp_min(1e-30))
+                                 .max()),
+               tol_max=float(tol.max()),
+               worst_err_over_tol=float((err / tol).max()),
+               vs_blocked_max_abs_err=float(err_b.max()),
+               vs_blocked_worst_err_over_tol=float((err_b / tol_b).max()),
+               library_max_abs_err=float((lib.float() - ref32).abs()
+                                         .max()),
+               gflop=flops / 1e9, mbytes=n_bytes / 1e6, ms=ms,
+               tflop_per_s=flops / ms / 1e9,
+               plain_ms=plain, bound_ms=bms, bound_by=by,
+               share_of_bound=bms / ms,
+               exp_floor_ms=n_exp / (EX2_PER_CLOCK * clock_hz) * 1e3,
+               library="scaled_dot_product_attention", library_ms=lib_ms,
+               ok=ok)
+    log("kernel", **res)
+    if not ok:
+        raise RuntimeError(f"kernel E disagrees with its plain versions: "
+                           f"{res}")
+    return res
+
+
+def phase_kernel_e(torch, clock_hz: float):
+    """Kernel E in bf16 at granite-3-2b's attention shape (H 32, KH 8,
+    Dh 64), causal, at each (B, S) of ``FLASH_SHAPES``, on the tensor
+    cores, held and timed by :func:`hold_kernel_e`."""
     dev = torch.device("cuda")
     H, KH, Dh = 32, 8, 64
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1506,58 +1585,8 @@ def phase_kernel_e(torch, clock_hz: float):
         q = torch.randn(B, S, H, Dh, generator=g, device=dev).bfloat16()
         k = torch.randn(B, S, KH, Dh, generator=g, device=dev).bfloat16()
         v = torch.randn(B, S, KH, Dh, generator=g, device=dev).bfloat16()
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True).transpose(1, 2)
-
-        got = flash_cuda(q, k, v, causal=True)
-        ref = flash_ref(q, k, v, causal=True)
-        abs_v = flash_ref(q.float(), k.float(), v.float().abs(), causal=True)
-        blk, slack = flash_blocked(q, k, v, causal=True,
-                                   p_dtype=torch.bfloat16, p_rel=P_REL)
-        lib = sdpa()
-        torch.cuda.synchronize()
-        got32, ref32, blk32 = got.float(), ref.float(), blk.float()
-        err = (got32 - ref32).abs()
-        tol = 2.0 ** -7 * ref32.abs() + 2.0 ** -7 * abs_v + 1e-4
-        err_b = (got32 - blk32).abs()
-        tol_b = 2.0 ** -7 * blk32.abs() + slack + 1e-4
-        ok = (bool((err <= tol).all()) and bool((err_b <= tol_b).all())
-              and got.dtype == torch.bfloat16)
-        ms = cuda_ms(torch, lambda: flash_cuda(q, k, v, causal=True), 20)
-        plain = cuda_ms(torch, lambda: flash_ref(q, k, v, causal=True), 3)
-        lib_ms = cuda_ms(torch, sdpa, 20)
-        flops = 4 * Dh * H * B * S * (S + 1) / 2      # causal QK^T and PV
-        n_bytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
-        bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
-        n_exp = B * H * S * (S + 1) / 2
-        res = dict(name="flash_attention", B=B, S=S, H=H, KH=KH, Dh=Dh,
-                   dtype="bfloat16", causal=True,
-                   max_abs_err=float(err.max()),
-                   max_rel_err=float((err / ref32.abs().clamp_min(1e-30))
-                                     .max()),
-                   tol_max=float(tol.max()),
-                   worst_err_over_tol=float((err / tol).max()),
-                   vs_blocked_max_abs_err=float(err_b.max()),
-                   vs_blocked_worst_err_over_tol=float((err_b / tol_b).max()),
-                   library_max_abs_err=float((lib.float() - ref32).abs()
-                                             .max()),
-                   gflop=flops / 1e9, mbytes=n_bytes / 1e6, ms=ms,
-                   tflop_per_s=flops / ms / 1e9,
-                   plain_ms=plain, bound_ms=bms, bound_by=by,
-                   share_of_bound=bms / ms,
-                   exp_floor_ms=n_exp / (EX2_PER_CLOCK * clock_hz) * 1e3,
-                   library="scaled_dot_product_attention", library_ms=lib_ms,
-                   ok=ok)
-        log("kernel", **res)
-        if not ok:
-            raise RuntimeError(f"kernel E disagrees with its plain versions: "
-                               f"{res}")
-        rows.append(res)
-        del q, k, v, got, ref, abs_v, blk, slack, lib, got32, ref32, blk32
-        del err, tol, err_b, tol_b
+        rows.append(hold_kernel_e(torch, q, k, v, clock_hz))
+        del q, k, v
         torch.cuda.empty_cache()
     return rows[0]
 
@@ -2156,6 +2185,377 @@ def phase_prefill(torch):
     if not all(checks):
         raise RuntimeError(f"prefill phase failed its checks: {checks}")
     return params
+
+
+GEN_B, GEN_PROMPT, GEN_STEPS = 4, 512, 32       # the ``generate`` phase
+# the ``generate_wide`` phase: (arch, depth kept or None for all, steps)
+GEN_WIDE = (("phi3-medium-14b", None, 16), ("deepseek-coder-33b", 8, 8),
+            ("deepseek-67b", 8, 8))
+GEN_WIDE_B, GEN_WIDE_PROMPT = 2, 1024
+NEAR_TIE = 1e-3            # a top-2 logit gap below this may flip argmax
+
+
+def counted_generate(torch, cfg, params, prompt, n_steps: int):
+    """One ``greedy_generate`` call, the main path's run: the launch
+    counts zeroed just before and read just after. Kernel E's wrapper is
+    wrapped for the call so that its first input (layer 0's prefill Q,
+    K, V) is kept; the wrapper itself runs unchanged. Returns the tokens,
+    E's launches and that (q, k, v), or None with flash off."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.model import greedy_generate
+    kept, flash = [], flash_ops.flash_attention
+
+    def keep_first(q, k, v, causal=True):
+        if not kept:
+            kept.append((q.clone(), k.clone(), v.clone()))
+        return flash(q, k, v, causal=causal)
+    flash_ops.flash_attention = keep_first
+    try:
+        reset_launch_counts()
+        toks = greedy_generate(cfg, params, prompt, n_steps)
+        torch.cuda.synchronize()
+        launches = launch_counts()["flash_attention"]
+    finally:
+        flash_ops.flash_attention = flash
+    return toks, launches, (kept[0] if kept else None)
+
+
+E_FIELDS = ("ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
+            "worst_err_over_tol", "vs_blocked_worst_err_over_tol",
+            "tflop_per_s")
+
+
+def decode_run(torch, cfg, params, prompt, n_steps: int, feed=None,
+               perturb=None) -> dict:
+    """``greedy_generate``'s loop through the same entry points
+    (``make_prefill`` → ``_pad_caches`` → ``make_serve_step``); it must
+    follow ``greedy_generate`` step for step (its callers check that the
+    tokens are the counted call's), so a change there is made here too.
+    It keeps
+    every step's logits (the prefill's last position, then each serve
+    step's) and timing the prefill and each step with CUDA events. With
+    ``feed`` (B, n_steps) the steps are fed those tokens (another run's)
+    in place of their own argmax, so two runs' logits are of one
+    sequence. ``perturb(caches, positions)``, where given, edits the
+    padded cache after the prefill (the prompt's positions) and after
+    each step (the step's position)."""
+    from repro_torch.models.model import (_pad_caches, make_prefill,
+                                          make_serve_step)
+    S = prompt.shape[1]
+    step = make_serve_step(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * n_steps)]
+    ev[0].record()
+    logits, caches = make_prefill(cfg)(params, {"tokens": prompt})
+    ev[1].record()
+    with torch.inference_mode():
+        caches = _pad_caches(cfg, caches, S + n_steps)
+        if perturb:
+            perturb(caches, slice(0, S))
+    tok = logits[:, -1:].argmax(dim=-1)
+    out, toks = [logits[:, -1].float()], [tok]
+    del logits
+    for t in range(n_steps - 1):
+        if feed is not None:
+            tok = feed[:, t:t + 1]
+        ev[2 + 2 * t].record()
+        lg, caches = step(params, tok, caches, S + t)
+        ev[3 + 2 * t].record()
+        if perturb:
+            with torch.inference_mode():
+                perturb(caches, slice(S + t, S + t + 1))
+        tok = lg[:, -1:].argmax(dim=-1)
+        out.append(lg[:, -1].float())
+        toks.append(tok)
+    torch.cuda.synchronize()
+    step_ms = [ev[2 + 2 * t].elapsed_time(ev[3 + 2 * t])
+               for t in range(n_steps - 1)]
+    return dict(tokens=torch.cat(toks, 1), logits=torch.stack(out, 1),
+                prefill_ms=ev[0].elapsed_time(ev[1]), step_ms=step_ms,
+                caches=caches)
+
+
+def step_profile(torch, cfg, params, run, pos: int) -> dict:
+    """One serve step at ``pos`` on ``run``'s cache, profiled: its device
+    time (every device event, torch.profiler), its share of the step's
+    CUDA-event p50 (the rest is the device idle, waiting on the host),
+    and the host's top ops by self time (:func:`host_ops`)."""
+    from repro_torch.models.model import make_serve_step
+    step = make_serve_step(cfg)
+    tok = run["tokens"][:, -1:]
+
+    def fn():
+        return step(params, tok, run["caches"], pos)
+    dev = device_ms(torch, fn, 1, "")     # ~3,600 device events a step
+    p50 = float(np.percentile(run["step_ms"], 50))
+    return dict(device_ms=dev["device_ms"],
+                device_events=dev["launches_per_call"],
+                idle_share=1.0 - dev["device_ms"] / p50,
+                host=host_ops(torch, fn, 1))
+
+
+def teacher_logits(torch, cfg, params, prompt, tokens):
+    """The full teacher-forced forward (mode "train") over the prompt and
+    the generated tokens but the last: (B, n, V) f32 logits at the
+    positions that produced each generated token."""
+    seq = torch.cat([prompt, tokens[:, :-1]], dim=1)
+    with torch.inference_mode():
+        logits, _ = params(seq, cfg=cfg, mode="train")
+    return logits[:, prompt.shape[1] - 1:].float()
+
+
+def hold_f32_decode(run, full) -> dict:
+    """An f32 decode against the f32 full forward: every step's logits to
+    1e-3 (two f32 computations of the same function, summed in other
+    orders; ``phase_prefill``'s f32 rule), and the greedy tokens equal
+    to the full forward's argmax except where its top-2 gap is under
+    ``NEAR_TIE`` (counted and logged)."""
+    diff = float((run["logits"] - full).abs().max())
+    top2 = full.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < NEAR_TIE
+    mismatch = run["tokens"] != full.argmax(dim=-1)
+    return dict(max_abs_logit_diff=diff, tol=1e-3,
+                near_ties=int(near.sum()),
+                token_mismatches=int(mismatch.sum()),
+                mismatches_off_near_ties=int((mismatch & ~near).sum()),
+                ok=diff <= 1e-3 and not bool((mismatch & ~near).any()))
+
+
+def step_fields(run, B: int) -> dict:
+    ms = np.asarray(run["step_ms"])
+    return dict(prefill_ms=run["prefill_ms"],
+                step_ms_p50=float(np.percentile(ms, 50)),
+                step_ms_p95=float(np.percentile(ms, 95)),
+                tokens_per_s=B * 1e3 / float(np.percentile(ms, 50)))
+
+
+def cache_bytes(caches) -> int:
+    return sum(x.numel() * x.element_size() for c in caches
+               for x in c.values())
+
+
+def decode_bound(cfg, compute_dtype: str, B: int, max_len: int,
+                 kv_bytes_per_token: int) -> dict:
+    """The least time of one decode step, bound by bytes: the f32
+    weights it uses read once and, in bf16 compute, their bf16 casts
+    written (the reference casts every weight at every call), plus the
+    cache read over ``max_len`` positions. An untied embedding table is
+    only gathered, B rows (cast after the gather); a tied one is the head
+    and is read whole. The operations (2 a matmul parameter a token) are
+    far below the bytes at B ≤ 4."""
+    from repro_torch.models.schema import param_count
+    n = param_count(cfg, padded=True)
+    table = cfg.padded_vocab * cfg.d_model
+    used = n if cfg.tie_embeddings else n - table + B * cfg.d_model
+    matmul = n if cfg.tie_embeddings else n - table
+    read = 4 * used + B * max_len * kv_bytes_per_token
+    written = 2 * used if compute_dtype == "bfloat16" else 0
+    bms, by = bound_ms(read + written, 2 * matmul * B, PEAK_BF16_FLOPS
+                       if compute_dtype == "bfloat16" else PEAK_FP32_FLOPS)
+    return dict(gb_read=read / 1e9, gb_written=written / 1e9,
+                bound_ms=bms, bound_by=by)
+
+
+def int8_perturbation(torch, seed: int):
+    """``perturb`` for :func:`decode_run`: every cached K/V element at the
+    given positions moves by the most the int8 cache can move it — half
+    a quantization step (scale / 2, scale = max|x| / 127 over its
+    (token, head)) plus the two bf16 roundings of the dequantization
+    (2^-8·|x|) — in a random sign."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def perturb(caches, sl):
+        for c in caches:
+            for key in ("k", "v"):
+                x = c[key][:, sl].float()
+                scale = x.abs().amax(dim=-1, keepdim=True) / 127.0
+                sign = torch.randint(0, 2, x.shape, generator=g,
+                                     device=x.device) * 2.0 - 1.0
+                c[key][:, sl] = (x + sign * (scale / 2 + 2.0 ** -8
+                                             * x.abs())).to(c[key].dtype)
+    return perturb
+
+
+def phase_generate(torch, params, clock_hz: float) -> dict:
+    """``greedy_generate`` on granite-3-2b at full width and depth (the
+    ``prefill`` phase's weights), B 4, a 512-token prompt, 32 new tokens,
+    in three settings: f32 compute with flash off; bf16 with flash on
+    (kernel E in every prefill); bf16 with flash on and
+    ``kv_cache_dtype="int8"``. Each is one counted ``greedy_generate``
+    call (launch counts zeroed just before, read just after), then the
+    same loop kept step by step (:func:`decode_run`), whose tokens must
+    be the call's, for the holds and the times:
+
+    - f32: every step's logits against the teacher-forced full forward
+      (:func:`hold_f32_decode`);
+    - bf16: every step's logits against the bf16 full forward (flash
+      on), within what bf16 moves the f32 full forward's logits on the
+      same tokens (``phase_prefill``'s rule);
+    - int8: every step's logits, fed the bf16 run's tokens, against the
+      bf16-cache decode, within the bound of :func:`int8_perturbation`:
+      the bf16-cache decode, fed the same tokens, run again with each
+      cached element moved by the most the int8 cache moves it, in
+      random sign; its largest logit move is the bound (the current
+      token's own K/V is unmoved in that run).
+
+    Kernel E is held against its plain versions and timed beside SDPA
+    (:func:`hold_kernel_e`) on the Q/K/V of layer 0 that the counted bf16
+    call gave it (:func:`counted_generate`).
+
+    Logs prefill ms, decode step ms (p50, p95), tokens/s, E's launches,
+    the cache bytes against 81,920 B a token a sequence in bf16, the
+    decode step's bound (:func:`decode_bound`) and, for one bf16 serve
+    step, its device time (all device events), idle share and the
+    host's top ops."""
+    from repro_torch.configs.registry import get_config
+
+    t0 = time.perf_counter()
+    base = get_config("granite-3-2b")
+    B, S, n = GEN_B, GEN_PROMPT, GEN_STEPS
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(
+        0, base.vocab, (B, S)), device="cuda")
+    f32 = dataclasses.replace(base, compute_dtype="float32")
+    bf16 = dataclasses.replace(base, use_flash_attention=True)
+    int8 = dataclasses.replace(bf16, kv_cache_dtype="int8")
+    runs, launches, res = {}, {}, {}
+    for name, cfg in (("f32", f32), ("bf16", bf16), ("int8", int8)):
+        toks, launches[name], qkv = counted_generate(torch, cfg, params,
+                                                     prompt, n)
+        e = (hold_kernel_e(torch, *qkv, clock_hz) if name == "bf16"
+             else None)
+        del qkv
+        runs[name] = decode_run(torch, cfg, params, prompt, n)
+        if not torch.equal(runs[name]["tokens"], toks):
+            raise RuntimeError(f"generate: the step-by-step {name} run "
+                               f"gave other tokens than greedy_generate")
+        kv_bytes = cache_bytes(runs[name]["caches"]) // (B * (S + n))
+        res[name] = dict(**step_fields(runs[name], B),
+                         flash_launches=launches[name],
+                         cache_bytes_per_token=kv_bytes,
+                         **decode_bound(base, cfg.compute_dtype, B,
+                                        S + n, kv_bytes))
+        if name == "bf16":
+            res[name]["flash"] = dict((k, e[k]) for k in E_FIELDS)
+            res[name]["step_profile"] = step_profile(
+                torch, cfg, params, runs[name], S + n - 1)
+        del runs[name]["caches"]
+    full32 = teacher_logits(torch, f32, params, prompt,
+                            runs["f32"]["tokens"])
+    res["f32"]["hold"] = hold_f32_decode(runs["f32"], full32)
+    del full32
+    toks_bf = runs["bf16"]["tokens"]
+    full_bf = teacher_logits(torch, bf16, params, prompt, toks_bf)
+    noise = float((full_bf - teacher_logits(torch, f32, params, prompt,
+                                            toks_bf)).abs().max())
+    d_bf = float((runs["bf16"]["logits"] - full_bf).abs().max())
+    res["bf16"]["hold"] = dict(max_abs_logit_diff=d_bf, tol=noise,
+                               ratio=d_bf / noise,
+                               tokens_equal_full_argmax=bool(torch.equal(
+                                   toks_bf, full_bf.argmax(-1))),
+                               ok=d_bf <= noise)
+    del full_bf
+    fed = decode_run(torch, int8, params, prompt, n, feed=toks_bf)
+    moved = decode_run(torch, bf16, params, prompt, n, feed=toks_bf,
+                       perturb=int8_perturbation(torch, 0))
+    del fed["caches"], moved["caches"]
+    bound = float((moved["logits"] - runs["bf16"]["logits"]).abs().max())
+    d8 = float((fed["logits"] - runs["bf16"]["logits"]).abs().max())
+    res["int8"]["hold"] = dict(
+        max_abs_logit_diff_vs_bf16_cache=d8, bound=bound,
+        ratio=d8 / bound, ok=d8 <= bound,
+        own_tokens_equal_bf16=float((runs["int8"]["tokens"] == toks_bf)
+                                    .float().mean()))
+    out = dict(model=base.name, n_layers=base.n_layers, B=B, prompt=S,
+               new_tokens=n, **res,
+               bf16_cache_reckoning=base.n_layers * 2 * base.n_kv_heads
+               * base.head_dim * 2,
+               phase_s=time.perf_counter() - t0)
+    log("generate", **out)
+    checks = [res["f32"]["hold"]["ok"], res["bf16"]["hold"]["ok"],
+              res["int8"]["hold"]["ok"],
+              launches["f32"] == 0,
+              launches["bf16"] == launches["int8"] == base.n_layers,
+              res["bf16"]["cache_bytes_per_token"]
+              == out["bf16_cache_reckoning"] == 81_920,
+              res["int8"]["cache_bytes_per_token"]
+              < res["bf16"]["cache_bytes_per_token"]]
+    if not all(checks):
+        raise RuntimeError(f"generate phase failed its checks: {checks}")
+    return dict(flash_attention=sum(launches.values()))
+
+
+def phase_generate_wide(torch, clock_hz: float) -> dict:
+    """phi3-medium-14b at full width and depth, deepseek-coder-33b and
+    deepseek-67b at full width cut to 8 layers (their f32 weights at full
+    depth, 133 and 270 GB, do not fit one card), random weights from a
+    seed, B 2, a 1,024-token prompt. For each: one counted
+    ``greedy_generate`` in bf16 with flash on (kernel E in the prefill),
+    whose first layer's Q/K/V are kept (:func:`counted_generate`);
+    kernel E held on them against its
+    plain versions and timed beside SDPA (:func:`hold_kernel_e`); the
+    same run step by step for the prefill and decode step times; and an
+    f32 decode (flash off) held against the f32 full forward
+    (:func:`hold_f32_decode`). Logs peak memory."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_params
+
+    t0 = time.perf_counter()
+    B, S = GEN_WIDE_B, GEN_WIDE_PROMPT
+    total, rows = 0, []
+    start_gib = torch.cuda.memory_allocated() / 2 ** 30
+    for arch, depth, n in GEN_WIDE:
+        t = time.perf_counter()
+        full = get_config(arch)
+        cfg = full if depth is None else dataclasses.replace(
+            full, n_layers=depth)
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0)
+        prompt = torch.as_tensor(np.random.default_rng(6).integers(
+            0, cfg.vocab, (B, S)), device="cuda")
+        bf16 = dataclasses.replace(cfg, use_flash_attention=True)
+        toks, e_launches, qkv = counted_generate(torch, bf16, params,
+                                                 prompt, n)
+        total += e_launches
+        e = hold_kernel_e(torch, *qkv, clock_hz)
+        del qkv
+        run = decode_run(torch, bf16, params, prompt, n)
+        same = bool(torch.equal(run["tokens"], toks))
+        kv_bytes = cache_bytes(run["caches"]) // (B * (S + n))
+        del run["caches"]
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        run32 = decode_run(torch, f32, params, prompt, n)
+        del run32["caches"]
+        hold = hold_f32_decode(run32, teacher_logits(
+            torch, f32, params, prompt, run32["tokens"]))
+        row = dict(model=arch, n_layers=cfg.n_layers,
+                   reduced=({} if depth is None else
+                            {"n_layers": [full.n_layers, depth]}),
+                   d_model=cfg.d_model, H=cfg.n_heads, KH=cfg.n_kv_heads,
+                   Dh=cfg.head_dim, B=B, prompt=S, new_tokens=n,
+                   flash_launches=e_launches,
+                   flash=dict((k, e[k]) for k in E_FIELDS),
+                   bf16=dict(**step_fields(run, B), tokens_equal=same,
+                             cache_bytes_per_token=kv_bytes,
+                             **decode_bound(cfg, "bfloat16", B,
+                                            S + n, kv_bytes)),
+                   f32=dict(**step_fields(run32, B), hold=hold,
+                            **decode_bound(cfg, "float32", B, S + n,
+                                           2 * kv_bytes)),
+                   max_memory_allocated_gib=torch.cuda
+                   .max_memory_allocated() / 2 ** 30,
+                   seconds=time.perf_counter() - t)
+        log("generate_wide", **row)
+        rows.append(row)
+        del params, run, run32, toks, prompt
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (same and hold["ok"] and e_launches == cfg.n_layers):
+            raise RuntimeError(f"generate_wide failed its checks on {arch}: "
+                               f"tokens {same}, f32 hold {hold}, "
+                               f"E launches {e_launches}")
+    log("generate_wide", start_allocated_gib=start_gib,
+        phase_s=time.perf_counter() - t0)
+    return dict(flash_attention=total)
 
 
 def stream_run(torch, params, mesh=None) -> dict:
@@ -3340,6 +3740,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_warm_1e6(torch)
     params = phase_prefill(torch)
+    gen_counts = phase_generate(torch, params, clock_hz)
     stream_counts, stream = phase_stream(torch, params)
     sharded_engine = phase_sharded_engine(torch, params, stream)
     del stream
@@ -3352,6 +3753,7 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    wide_counts = phase_generate_wide(torch, clock_hz)
     phase_launch()
     counts["greedy_gain"] = d["launches"]         # its entry point's run
     counts["flash_attention"] = stream_counts["flash_attention"]
@@ -3401,6 +3803,9 @@ def main() -> int:
         if r["name"] == "flash_attention":       # the strategy engines
             kernels[-1]["launches_scenario"] = \
                 scenario_counts["flash_attention"]
+            kernels[-1]["launches_generate"] = (     # greedy_generate
+                gen_counts["flash_attention"]
+                + wide_counts["flash_attention"])
         if r["name"] in gate_counts:             # the gated stream engine
             kernels[-1]["launches_gate"] = gate_counts[r["name"]]
         if r["name"] in shapes:        # A, B: K 448, 65,536; C: O 10⁵, 2e4

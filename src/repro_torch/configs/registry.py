@@ -1,17 +1,24 @@
 """Architecture registry: public arch ids → full + smoke configs.
 
-Counterpart of ``repro.configs.registry`` for the one family this slice
-ports: the dense decoder the serving engine uses as its repository
-(granite-3-2b). The rest of the zoo is ROADMAP queue 1 item 14.
+Counterpart of ``repro.configs.registry`` for the dense decoder family:
+granite-3-2b (the serving engine's repository), phi3-medium-14b,
+deepseek-coder-33b and deepseek-67b. The other families (MoE, SSM,
+encoder-decoder, VLM) are ROADMAP queue 1 item 14.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import granite_3_2b
+from repro_torch.configs import (deepseek_67b, deepseek_coder_33b,
+                                 granite_3_2b, phi3_medium_14b)
 from repro_torch.configs.base import ArchConfig
 
-_MODULES = {"granite-3-2b": granite_3_2b}
+_MODULES = {
+    "deepseek-67b": deepseek_67b,
+    "granite-3-2b": granite_3_2b,
+    "deepseek-coder-33b": deepseek_coder_33b,
+    "phi3-medium-14b": phi3_medium_14b,
+}
 
 
 def list_archs() -> list[str]:

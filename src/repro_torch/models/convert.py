@@ -6,6 +6,10 @@ leaves carry a leading scanned ``layers`` axis
 that tree as numpy arrays, :func:`from_jax_params` builds a
 ``DecoderLM`` holding the same weights, one block per layer, so both
 packages compute from identical parameters in the tests.
+:func:`caches_from_jax` does the same for a serving cache: the
+reference's dict of per-block leaves stacked on the layer axis becomes
+the port's list of one dict a layer, so both packages can decode from
+the same cache mid-sequence.
 """
 from __future__ import annotations
 
@@ -40,3 +44,24 @@ def from_jax_params(cfg: ArchConfig, tree: dict,
                 getattr(blk, name).copy_(torch.tensor(
                     np.asarray(stacked[name][layer])))
     return model
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (bfloat16 from ``ml_dtypes`` included) as a tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def caches_from_jax(cfg: ArchConfig, caches: dict,
+                    device: str | torch.device | None = None) -> list:
+    """The port's serving cache (one dict a layer: ``k``, ``v`` and, for
+    an int8 cache, ``k_s``, ``v_s``) holding the reference cache tree
+    ``caches`` (numpy arrays with a leading layer axis), on ``device``
+    (CUDA unless named)."""
+    dev = resolve_device(device)
+    stacked = caches[_block_key(0, block_pattern(cfg)[0])]
+    return [{name: _tensor(x[layer]).to(dev) for name, x in stacked.items()}
+            for layer in range(cfg.n_layers)]

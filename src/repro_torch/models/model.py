@@ -1,22 +1,32 @@
-"""Public model API: ``init_params`` and ``make_prefill``.
+"""Public model API: build (init, loss, train-forward, prefill, serve-step,
+cache, greedy sampler) from an ArchConfig.
 
-Counterpart of ``repro.models.model`` for what the serving engine
-calls. ``init_params`` returns the model itself — an ``nn.Module`` whose
+Counterpart of ``repro.models.model`` for the dense decoder.
+``init_params`` returns the model itself — an ``nn.Module`` whose
 parameters play the role of the reference's parameter tree — with
 random weights drawn on ``device`` from a seeded ``torch.Generator``
 (the reference's ``jax.random`` draws are not reproduced; tests that
 compare against it load the JAX weights through models/convert.py).
+Every function runs with the config it is given, not the one the
+weights were built with (``DecoderLM.forward``). Parameters keep
+``requires_grad=False``: the gradient step is a later slice.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
 from repro_torch.models.schema import param_schema
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import DecoderLM, _kv_quant
+
+AUX_LOSS_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-4
 
 
 def init_params(cfg: ArchConfig, seed: int = 0,
@@ -38,6 +48,35 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     return model
 
 
+def loss_fn(cfg: ArchConfig, params: DecoderLM,
+            batch: dict) -> tuple[torch.Tensor, dict]:
+    """Token cross-entropy (+ MoE aux loss + z-loss). ``batch`` needs
+    ``tokens`` (B, S) and ``labels`` (B, S_lab); the last S_lab positions
+    are scored. An optional ``loss_mask`` (B, S_lab) zeroes out positions;
+    the denominator is its sum, floored at 1. Returns (total, {"ce",
+    "aux", "zloss"}), f32 scalars; ``aux`` is 0 for the dense family."""
+    logits, _ = params(batch["tokens"], batch.get("positions"), cfg=cfg,
+                       mode="train")
+    labels = batch["labels"]
+    logits_f = logits[:, -labels.shape[1]:, :].float()
+    logz = torch.logsumexp(logits_f, dim=-1)
+    ll = torch.gather(logits_f, -1, labels[..., None].long())[..., 0]
+    nll = logz - ll
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = mask.sum().clamp_min(1.0)
+    ce = (nll * mask).sum() / denom
+    zloss = (logz ** 2 * mask).sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    total = ce + AUX_LOSS_WEIGHT * aux + Z_LOSS_WEIGHT * zloss
+    return total, {"ce": ce, "aux": aux, "zloss": zloss}
+
+
+def make_train_forward(cfg: ArchConfig) -> Callable:
+    """(params, batch) → (loss, metrics): the forward of the loss."""
+    return functools.partial(loss_fn, cfg)
+
+
 def make_prefill(cfg: ArchConfig) -> Callable:
     """(params, batch) → (logits, caches): the full-sequence forward the
     engine runs on its misses, with ``cfg`` — not the config ``params``
@@ -47,3 +86,73 @@ def make_prefill(cfg: ArchConfig) -> Callable:
         with torch.inference_mode():
             return params(batch["tokens"], batch.get("positions"), cfg=cfg)
     return prefill
+
+
+def make_serve_step(cfg: ArchConfig) -> Callable:
+    """One decode step: (params, tokens (B, 1), caches, pos) → (logits
+    (B, 1, V), caches). ``pos`` is the current sequence length (the new
+    token's position). The step writes the new K/V into the caller's
+    ``caches`` in place (a static shape) and returns that same list;
+    a ``pos`` outside the cache raises ``ValueError``."""
+    def serve_step(params: DecoderLM, tokens: torch.Tensor, caches: list,
+                   pos: int):
+        B = tokens.shape[0]
+        positions = torch.full((B, 1), pos, dtype=torch.long,
+                               device=tokens.device)
+        with torch.inference_mode():
+            return params(tokens, positions, cfg=cfg, mode="decode",
+                          caches=caches, pos=pos)
+    return serve_step
+
+
+def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
+               device: str | torch.device | None = None) -> list:
+    """The zeroed serving cache (``transformer.init_cache``) on
+    ``device`` (CUDA unless named)."""
+    return transformer.init_cache(cfg, batch_size, max_len, device=device)
+
+
+def _pad_caches(cfg: ArchConfig, caches: list, max_len: int) -> list:
+    """Pad prefill KV caches along the sequence axis to ``max_len``,
+    quantizing them first when ``cfg.kv_cache_dtype == "int8"``. Returns
+    new dicts; the prefill's tensors are not changed."""
+    out = []
+    for layer in caches:
+        entry = dict(layer)
+        for key in ("k", "v"):
+            x = entry[key]
+            if cfg.kv_cache_dtype == "int8" and x.dtype != torch.int8:
+                entry[key], entry[key + "_s"] = _kv_quant(x)
+            extra = max_len - x.shape[1]
+            if extra < 0:
+                raise ValueError(f"the cache holds {x.shape[1]} positions, "
+                                 f"more than max_len {max_len}")
+            for name in (key, key + "_s"):
+                if name in entry:
+                    entry[name] = F.pad(entry[name],
+                                        (0, 0, 0, 0, 0, extra))
+        out.append(entry)
+    return out
+
+
+def greedy_generate(cfg: ArchConfig, params: DecoderLM,
+                    prompt: torch.Tensor, n_steps: int,
+                    max_len: int | None = None) -> torch.Tensor:
+    """Greedy argmax sampler: the prefill of ``prompt`` (B, S), its cache
+    padded to ``max_len`` (default S + n_steps), then ``n_steps`` − 1
+    serve steps. Returns the (B, n_steps) generated tokens (int64, on
+    the prompt's device). The argmax is over the padded vocabulary and
+    takes the first index of a tie, as ``jnp.argmax``."""
+    S = prompt.shape[1]
+    max_len = max_len or (S + n_steps)
+    step = make_serve_step(cfg)
+    logits, caches = make_prefill(cfg)(params, {"tokens": prompt})
+    with torch.inference_mode():
+        caches = _pad_caches(cfg, caches, max_len)
+    tok = logits[:, -1:, :].argmax(dim=-1)
+    out = [tok]
+    for t in range(n_steps - 1):
+        logits, caches = step(params, tok, caches, S + t)
+        tok = logits[:, -1:, :].argmax(dim=-1)
+        out.append(tok)
+    return torch.cat(out, dim=1)

@@ -9,6 +9,7 @@ The reference stacks per-block parameters on a leading scanned
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -85,3 +86,30 @@ def param_schema(cfg: ArchConfig) -> dict:
     if not cfg.tie_embeddings:
         schema["lm_head"] = ParamSpec((d, vp))
     return schema
+
+
+def param_count(cfg: ArchConfig, padded: bool = False) -> int:
+    """Total parameter count from the schema (vocab padding excluded by
+    default so the number matches the published size). The block specs
+    are one layer's, counted ``n_layers`` times (the reference's stack).
+    Nothing is allocated."""
+    schema = param_schema(cfg)
+    block = schema.pop("block")
+    vp, v = cfg.padded_vocab, cfg.vocab
+    total = cfg.n_layers * sum(math.prod(s.shape) for s in block.values())
+    for key, s in schema.items():
+        n = math.prod(s.shape)
+        if not padded and key in ("embed", "lm_head"):
+            n = n // vp * v
+        total += n
+    return total
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Parameters touched per token (MoE: only top-k experts active)."""
+    total = param_count(cfg)
+    if cfg.moe_experts:
+        per_expert = 3 * cfg.d_model * cfg.d_ff
+        n_moe = sum(1 for i in range(cfg.n_layers) if cfg.is_moe_layer(i))
+        total -= n_moe * (cfg.moe_experts - cfg.moe_topk) * per_expert
+    return total

@@ -18,10 +18,14 @@ product) is also held to the bound derived from that rounding,
 counterpart step for step, ``flash_blocked``, within one bf16 output step
 plus the slack of a p known to 2^-13 (tests/test_torch_flash_tc.py).
 """
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.core import catalog, costs, demand, topology
 from repro_torch.core.objective import DeviceInstance, Instance
 from repro_torch.core.placement import device_greedy, device_netduel, greedy
@@ -357,6 +361,13 @@ FLASH_CASES = [
     (1, 1, 64, 4, 4, 32, False),
     (3, 203, 203, 32, 8, 64, True),
     (8, 128, 128, 32, 8, 64, True),
+    # the Dh-128 dense decoders' prefill attention: phi3-medium-14b (4
+    # query heads a KV head), deepseek-coder-33b (7) and deepseek-67b
+    # (8), and a ragged length at the odd group
+    (1, 1024, 1024, 40, 10, 128, True),
+    (1, 1024, 1024, 56, 8, 128, True),
+    (1, 1024, 1024, 64, 8, 128, True),
+    (1, 1000, 1000, 56, 8, 128, True),
 ]
 
 
@@ -399,6 +410,49 @@ def test_flash_kernel_matches_plain(cuda, case, dtype, tol):
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
     if dtype == torch.bfloat16:
         _hold_bf16(got, q, k, v, causal)
+
+
+@pytest.mark.parametrize("kv", ["compute", "int8"])
+def test_serve_step_on_card_matches_cpu(cuda, kv):
+    """granite-3-2b at full width and 2 layers, f32 compute: a prefill, its
+    padded cache and three ``make_serve_step`` steps on the card against
+    the same calls on the CPU, on the same weights. Logits to 1e-3 (f32
+    sums in other orders over d 2048, logits of order 1) and f32 K/V to
+    1e-4; an int8 payload within ±1 (the card's matmuls move K/V by ulps,
+    which can carry a value across a rounding boundary) and its scale to
+    1e-5 relative."""
+    from repro_torch.models import model as model_api
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=2,
+                              compute_dtype="float32", kv_cache_dtype=kv)
+    host = model_api.init_params(cfg, 0, device="cpu")
+    card = copy.deepcopy(host).to(cuda)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 16)))
+    runs = []
+    for model, dev in ((host, "cpu"), (card, cuda)):
+        logits, caches = model_api.make_prefill(cfg)(
+            model, {"tokens": prompt.to(dev)})
+        caches = model_api._pad_caches(cfg, caches, 20)
+        out = [logits[:, -1:]]
+        step = model_api.make_serve_step(cfg)
+        for t in range(3):
+            tok = torch.full((2, 1), 7 + t, device=dev)
+            lg, caches = step(model, tok, caches, 16 + t)
+            out.append(lg)
+        runs.append((torch.cat(out, 1).cpu(),
+                     [{k: x.cpu() for k, x in c.items()} for c in caches]))
+    (ref, ref_c), (got, got_c) = runs
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
+    for g, r in zip(got_c, ref_c):
+        for key in ("k", "v"):
+            if kv == "int8":
+                assert g[key].dtype == torch.int8
+                assert (g[key].int() - r[key].int()).abs().max() <= 1
+                torch.testing.assert_close(g[key + "_s"], r[key + "_s"],
+                                           rtol=1e-5, atol=0)
+            else:
+                torch.testing.assert_close(g[key], r[key], rtol=0,
+                                           atol=1e-4)
 
 
 def test_flash_kernel_reads_strided_layout_and_kv_len(cuda):
@@ -1184,7 +1238,6 @@ def test_shard_local_entry_matches_plain_on_chunks(cuda, n_shards, D):
 def test_sharded_lookup_bitwise_on_card(cuda, K, n_shards):
     """A sharded network serves the fused network's bits, exact and with
     every verified flag, with n launches of kernel A per exact lookup."""
-    import dataclasses
     from repro_torch.launch.mesh import make_lookup_mesh
     net, q = _plane_net(cuda, K, "l2", seed=n_shards)
     snet = dataclasses.replace(net, sharded=True,
