@@ -187,11 +187,29 @@ Phases, one line each before the last:
    SDPA on the first layer's Q/K/V (Dh 128; 4, 7 and 8 query heads a KV
    head), the prefill and decode step times, an f32 decode held against
    the f32 full forward, and peak memory.
+   Then ``families``: the other model families at full width, random
+   weights from a seed — granite-moe-3b-a800m (40 experts, top-8),
+   dbrx-132b cut to 2 layers, jamba-1.5-large-398b cut to one
+   super-block of 8 layers with 4 of 16 experts (attention, Mamba at
+   full width, MoE), xlstm-350m (mLSTM, sLSTM), qwen2-vl-7b (QKV biases,
+   M-RoPE) — B 2, a 512-token prompt, 8 new tokens: a counted bf16
+   ``greedy_generate`` with E in its prefill, E held on its first
+   layer's Q/K/V, the run step by step for its times, an f32 decode
+   held against the f32 teacher-forced forward (MoE at no drop, router
+   near-ties below 1e-6 skipped and named; the prefill's drops at
+   capacity 1.25 counted), peak memory; qwen2-vl also a counted f32
+   prefill of 256 image patches before 256 tokens on a grid of M-RoPE
+   ids, held against the train-mode forward; whisper-small whole, 1,500
+   audio frames and a 64-token prompt: a counted bf16 prefill (E
+   non-causal in the encoder, causal in the decoder, both held) and
+   serve steps, then the prefill and 8 serve steps in f32 held against
+   ``encdec_forward`` in train mode.
 9. ``launch`` — ``python -m repro_torch.launch.serve`` in a subprocess,
    batch loop, streaming, streaming with ``--netduel``, the batch loop
    with ``--warm-start``, and ``--scenario scale_free --strategy lce``
-   in both loops; each must exit 0 and print its final ``[serve] …
-   hit-rate`` line (and the duel churn with ``--netduel``, the scenario
+   in both loops, and the batch loop with ``--arch
+   jamba-1.5-large-398b``; each must exit 0 and print its final
+   ``[serve] … hit-rate`` line (and the duel churn with ``--netduel``, the scenario
    with ``--scenario``).
 10. ``kernels`` — one JSON object with every kernel's numbers; A's and
    B's entries also carry each of their two shapes (K 448 and 65,536),
@@ -202,7 +220,8 @@ Phases, one line each before the last:
    its launches in the ``warmstart`` run, C's and E's their launches in
    the ``scenario`` runs, and every entry its launches in the ``gate``
    run; E's its launches in the ``greedy_generate`` calls of
-   ``generate`` and ``generate_wide`` (``launches_generate``); A's also
+   ``generate`` and ``generate_wide`` (``launches_generate``) and in
+   the ``families`` phase's counted runs (``launches_families``); A's also
    its launches over the ``compress`` runs; A's and C's their launches
    in the sharded phases (``launches_sharded``), and A's the hold of its
    shard-local entry (``shard_local_hold``). Beside the
@@ -1489,10 +1508,11 @@ FLASH_SHAPES = ((1, 4096), (4, 2048), (2, 1000),
                 (128, 128), (256, 128))
 
 
-def hold_kernel_e(torch, q, k, v, clock_hz: float) -> dict:
+def hold_kernel_e(torch, q, k, v, clock_hz: float,
+                  causal: bool = True) -> dict:
     """Kernel E in bf16 on (q, k, v) (B, S, H, Dh) / (B, S, KH, Dh),
-    causal, on the tensor cores, held against its plain versions and
-    timed beside them and SDPA.
+    causal or not, on the tensor cores, held against its plain versions
+    and timed beside them and SDPA.
 
     Against ``flash_ref`` (the exact f32 softmax, output rounded once to
     bf16), the kernel has two roundings: each p to bf16 before the PV
@@ -1512,8 +1532,9 @@ def hold_kernel_e(torch, q, k, v, clock_hz: float) -> dict:
 
     Reported beside the time: achieved TFLOP/s, the share of the bound
     (operations at the bf16 peak), the exponential floor (the causal
-    B·H·S·(S+1)/2 exponentials at 16 per clock per SM on 132 SMs, at the
-    card's maximum SM clock) and SDPA's time. Raises if a hold fails."""
+    B·H·S·(S+1)/2 exponentials, B·H·S² without the mask, at 16 per clock
+    per SM on 132 SMs, at the card's maximum SM clock) and SDPA's time.
+    Raises if a hold fails."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_blocked,
@@ -1525,12 +1546,12 @@ def hold_kernel_e(torch, q, k, v, clock_hz: float) -> dict:
     def sdpa():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
+            is_causal=causal, enable_gqa=True).transpose(1, 2)
 
-    got = flash_cuda(q, k, v, causal=True)
-    ref = flash_ref(q, k, v, causal=True)
-    abs_v = flash_ref(q.float(), k.float(), v.float().abs(), causal=True)
-    blk, slack = flash_blocked(q, k, v, causal=True,
+    got = flash_cuda(q, k, v, causal=causal)
+    ref = flash_ref(q, k, v, causal=causal)
+    abs_v = flash_ref(q.float(), k.float(), v.float().abs(), causal=causal)
+    blk, slack = flash_blocked(q, k, v, causal=causal,
                                p_dtype=torch.bfloat16, p_rel=P_REL)
     lib = sdpa()
     torch.cuda.synchronize()
@@ -1541,15 +1562,15 @@ def hold_kernel_e(torch, q, k, v, clock_hz: float) -> dict:
     tol_b = 2.0 ** -7 * blk32.abs() + slack + 1e-4
     ok = (bool((err <= tol).all()) and bool((err_b <= tol_b).all())
           and got.dtype == torch.bfloat16)
-    ms = cuda_ms(torch, lambda: flash_cuda(q, k, v, causal=True), 20)
-    plain = cuda_ms(torch, lambda: flash_ref(q, k, v, causal=True), 3)
+    ms = cuda_ms(torch, lambda: flash_cuda(q, k, v, causal=causal), 20)
+    plain = cuda_ms(torch, lambda: flash_ref(q, k, v, causal=causal), 3)
     lib_ms = cuda_ms(torch, sdpa, 20)
-    flops = 4 * Dh * H * B * S * (S + 1) / 2      # causal QK^T and PV
+    n_exp = B * H * S * ((S + 1) / 2 if causal else S)   # the scores kept
+    flops = 4 * Dh * n_exp                        # QK^T and PV
     n_bytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
     bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
-    n_exp = B * H * S * (S + 1) / 2
     res = dict(name="flash_attention", B=B, S=S, H=H, KH=KH, Dh=Dh,
-               dtype="bfloat16", causal=True,
+               dtype="bfloat16", causal=causal,
                max_abs_err=float(err.max()),
                max_rel_err=float((err / ref32.abs().clamp_min(1e-30))
                                  .max()),
@@ -2195,30 +2216,41 @@ GEN_WIDE_B, GEN_WIDE_PROMPT = 2, 1024
 NEAR_TIE = 1e-3            # a top-2 logit gap below this may flip argmax
 
 
+class kept_flash_inputs:
+    """Inside the block, kernel E's entry (``flash_ops.flash_attention``)
+    is wrapped so that the first (q, k, v) it gets with each ``causal``
+    setting is kept (a copy) in the dict the block yields; the entry
+    itself runs unchanged."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        self.ops, self.flash, kept = flash_ops, flash_ops.flash_attention, {}
+
+        def keep_first(q, k, v, causal=True):
+            if causal not in kept:
+                kept[causal] = (q.clone(), k.clone(), v.clone())
+            return self.flash(q, k, v, causal=causal)
+        flash_ops.flash_attention = keep_first
+        return kept
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.flash
+
+
 def counted_generate(torch, cfg, params, prompt, n_steps: int):
     """One ``greedy_generate`` call, the main path's run: the launch
-    counts zeroed just before and read just after. Kernel E's wrapper is
-    wrapped for the call so that its first input (layer 0's prefill Q,
-    K, V) is kept; the wrapper itself runs unchanged. Returns the tokens,
-    E's launches and that (q, k, v), or None with flash off."""
+    counts zeroed just before and read just after, kernel E's first input
+    (layer 0's prefill Q, K, V) kept (:class:`kept_flash_inputs`).
+    Returns the tokens, E's launches and that (q, k, v), or None with
+    flash off (or no attention layer)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models.model import greedy_generate
-    kept, flash = [], flash_ops.flash_attention
-
-    def keep_first(q, k, v, causal=True):
-        if not kept:
-            kept.append((q.clone(), k.clone(), v.clone()))
-        return flash(q, k, v, causal=causal)
-    flash_ops.flash_attention = keep_first
-    try:
+    with kept_flash_inputs() as kept:
         reset_launch_counts()
         toks = greedy_generate(cfg, params, prompt, n_steps)
         torch.cuda.synchronize()
         launches = launch_counts()["flash_attention"]
-    finally:
-        flash_ops.flash_attention = flash
-    return toks, launches, (kept[0] if kept else None)
+    return toks, launches, kept.get(True)
 
 
 E_FIELDS = ("ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
@@ -2227,7 +2259,8 @@ E_FIELDS = ("ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
 
 
 def decode_run(torch, cfg, params, prompt, n_steps: int, feed=None,
-               perturb=None) -> dict:
+               perturb=None, extra=None, keep_prefill: bool = False
+               ) -> dict:
     """``greedy_generate``'s loop through the same entry points
     (``make_prefill`` → ``_pad_caches`` → ``make_serve_step``); it must
     follow ``greedy_generate`` step for step (its callers check that the
@@ -2239,14 +2272,22 @@ def decode_run(torch, cfg, params, prompt, n_steps: int, feed=None,
     in place of their own argmax, so two runs' logits are of one
     sequence. ``perturb(caches, positions)``, where given, edits the
     padded cache after the prefill (the prompt's positions) and after
-    each step (the step's position)."""
+    each step (the step's position). ``extra`` adds entries to the
+    prefill's batch (an encoder-decoder's ``audio_embeds``: its serve
+    steps then read the encoder output from the cache, where
+    ``greedy_generate`` refuses it); ``keep_prefill`` keeps the
+    prefill's logits at every position (``prefill_logits``, f32)."""
     from repro_torch.models.model import (_pad_caches, make_prefill,
                                           make_serve_step)
-    S = prompt.shape[1]
+    B, S = prompt.shape
     step = make_serve_step(cfg)
+    batch = {"tokens": prompt, **(extra or {})}
+    if cfg.mrope:
+        batch["mrope_positions"] = torch.arange(
+            S, device=prompt.device)[None, None, :].expand(3, B, S)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * n_steps)]
     ev[0].record()
-    logits, caches = make_prefill(cfg)(params, {"tokens": prompt})
+    logits, caches = make_prefill(cfg)(params, batch)
     ev[1].record()
     with torch.inference_mode():
         caches = _pad_caches(cfg, caches, S + n_steps)
@@ -2254,6 +2295,7 @@ def decode_run(torch, cfg, params, prompt, n_steps: int, feed=None,
             perturb(caches, slice(0, S))
     tok = logits[:, -1:].argmax(dim=-1)
     out, toks = [logits[:, -1].float()], [tok]
+    prefill_logits = logits.float() if keep_prefill else None
     del logits
     for t in range(n_steps - 1):
         if feed is not None:
@@ -2272,7 +2314,7 @@ def decode_run(torch, cfg, params, prompt, n_steps: int, feed=None,
                for t in range(n_steps - 1)]
     return dict(tokens=torch.cat(toks, 1), logits=torch.stack(out, 1),
                 prefill_ms=ev[0].elapsed_time(ev[1]), step_ms=step_ms,
-                caches=caches)
+                caches=caches, prefill_logits=prefill_logits)
 
 
 def step_profile(torch, cfg, params, run, pos: int) -> dict:
@@ -2294,31 +2336,45 @@ def step_profile(torch, cfg, params, run, pos: int) -> dict:
                 host=host_ops(torch, fn, 1))
 
 
-def teacher_logits(torch, cfg, params, prompt, tokens):
+def teacher_logits(torch, cfg, params, prompt, tokens,
+                   whole: bool = False):
     """The full teacher-forced forward (mode "train") over the prompt and
     the generated tokens but the last: (B, n, V) f32 logits at the
-    positions that produced each generated token."""
-    seq = torch.cat([prompt, tokens[:, :-1]], dim=1)
+    positions that produced each generated token. With ``whole`` the
+    forward runs over every generated token and its last position is
+    dropped (a causal no-op, for a chunked scan whose chunk count must
+    divide the length: S 512 + 8 = 520 where 519 would not)."""
+    seq = torch.cat([prompt, tokens if whole else tokens[:, :-1]], dim=1)
     with torch.inference_mode():
         logits, _ = params(seq, cfg=cfg, mode="train")
-    return logits[:, prompt.shape[1] - 1:].float()
+    n = tokens.shape[1]
+    return logits[:, prompt.shape[1] - 1:][:, :n].float()
 
 
-def hold_f32_decode(run, full) -> dict:
+def hold_f32_decode(run, full, skip=None) -> dict:
     """An f32 decode against the f32 full forward: every step's logits to
     1e-3 (two f32 computations of the same function, summed in other
     orders; ``phase_prefill``'s f32 rule), and the greedy tokens equal
     to the full forward's argmax except where its top-2 gap is under
-    ``NEAR_TIE`` (counted and logged)."""
-    diff = float((run["logits"] - full).abs().max())
+    ``NEAR_TIE`` (counted and logged). ``skip`` (B, n), where given,
+    names positions left out of both (router near-ties, where a whole
+    expert may swap); they are listed."""
+    keep = None if skip is None else ~skip
+    d = (run["logits"] - full).abs().amax(-1)
+    diff = float(d.max() if keep is None else d[keep].max())
     top2 = full.topk(2, dim=-1).values
     near = (top2[..., 0] - top2[..., 1]) < NEAR_TIE
     mismatch = run["tokens"] != full.argmax(dim=-1)
-    return dict(max_abs_logit_diff=diff, tol=1e-3,
-                near_ties=int(near.sum()),
-                token_mismatches=int(mismatch.sum()),
-                mismatches_off_near_ties=int((mismatch & ~near).sum()),
-                ok=diff <= 1e-3 and not bool((mismatch & ~near).any()))
+    if keep is not None:
+        near, mismatch = near & keep, mismatch & keep
+    out = dict(max_abs_logit_diff=diff, tol=1e-3,
+               near_ties=int(near.sum()),
+               token_mismatches=int(mismatch.sum()),
+               mismatches_off_near_ties=int((mismatch & ~near).sum()),
+               ok=diff <= 1e-3 and not bool((mismatch & ~near).any()))
+    if skip is not None:
+        out["skipped"] = [tuple(map(int, p)) for p in skip.nonzero()]
+    return out
 
 
 def step_fields(run, B: int) -> dict:
@@ -2554,6 +2610,278 @@ def phase_generate_wide(torch, clock_hz: float) -> dict:
                                f"tokens {same}, f32 hold {hold}, "
                                f"E launches {e_launches}")
     log("generate_wide", start_allocated_gib=start_gib,
+        phase_s=time.perf_counter() - t0)
+    return dict(flash_attention=total)
+
+
+# the ``families`` phase: (arch, the fields cut to fit one card, or {})
+FAMILIES = (("granite-moe-3b-a800m", {}),
+            ("dbrx-132b", {"n_layers": 2}),
+            ("jamba-1.5-large-398b", {"n_layers": 8, "moe_experts": 4}),
+            ("xlstm-350m", {}),
+            ("qwen2-vl-7b", {}),
+            ("whisper-small", {}))
+FAM_B, FAM_PROMPT, FAM_STEPS = 2, 512, 8
+WHISPER_PROMPT = 64        # decoder tokens before the 8 held serve steps
+VLM_GRID = 16              # image patches on a 16 × 16 grid before 256 tokens
+ROUTER_NEAR_TIE = 1e-6     # a router gap below this may swap a whole expert
+
+
+class moe_watch:
+    """Inside the block, the port's MoE layer (``moe.moe_mlp``) is wrapped:
+    for each call its capacity factor, the token-slots its capacity
+    dropped, its slots (tokens × k) and its router gaps ((B, S): the
+    k-th minus the (k+1)-th router probability) go into the list the
+    block yields, as tensors (no host sync); the layer runs unchanged."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.fn, calls = moe, moe.moe_mlp, []
+
+        def watched(x, router, we_gate, we_up, we_down, topk,
+                    capacity_factor=1.25, group_size=512,
+                    dispatch="einsum"):
+            B, S, D = x.shape
+            E = router.shape[1]
+            G, Tg = moe._groups(B * S, group_size)
+            _, idx, _ = moe._route(x.reshape(-1, D), router, topk)
+            _, keep = moe._positions_in_expert(
+                idx.reshape(G, Tg, topk), E,
+                moe._capacity(Tg, topk, E, capacity_factor))
+            calls.append(dict(cf=capacity_factor, dropped=(~keep).sum(),
+                              slots=B * S * topk,
+                              gaps=moe.router_gaps(x, router, topk)))
+            return self.fn(x, router, we_gate, we_up, we_down, topk,
+                           capacity_factor, group_size, dispatch)
+        moe.moe_mlp = watched
+        return calls
+
+    def __exit__(self, *exc):
+        self.moe.moe_mlp = self.fn
+
+
+def vlm_image_prefill(torch, cfg, params) -> dict:
+    """qwen2-vl's stub vision path: 256 image embeddings (B, 256, 1280)
+    projected by ``vision_proj`` and put before 256 tokens, with Qwen2-VL's
+    (3, B, 512) M-RoPE ids (the patches on a 16 × 16 grid: temporal 0,
+    height i // 16, width i % 16; the text's three ids equal, past the
+    grid). One counted f32 prefill with flash on (E's f32 path, one
+    launch a layer), held against the f32 train-mode forward with flash
+    off to 1e-3 (the f32 rule of :func:`hold_f32_decode`)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import make_prefill
+    B, n_img = FAM_B, VLM_GRID * VLM_GRID
+    g = torch.Generator(device="cuda").manual_seed(8)
+    img = torch.randn(B, n_img, 1280, generator=g, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab, (B, 256)), device="cuda")
+    i = torch.arange(n_img, device="cuda")
+    ids = torch.cat([torch.stack([0 * i, i // VLM_GRID, i % VLM_GRID]),
+                     (VLM_GRID + torch.arange(256, device="cuda"))
+                     .expand(3, 256)], dim=1)[:, None].expand(3, B, -1)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              use_flash_attention=True)
+    reset_launch_counts()
+    logits, caches = make_prefill(f32)(params, dict(
+        tokens=toks, image_embeds=img, mrope_positions=ids))
+    torch.cuda.synchronize()
+    launches = launch_counts()["flash_attention"]
+    with torch.inference_mode():
+        ref, _ = params(toks, cfg=dataclasses.replace(
+            f32, use_flash_attention=False), mode="train",
+            image_embeds=img, mrope_positions=ids)
+    diff = float((logits - ref).abs().max())
+    shape_ok = (tuple(logits.shape) == (B, n_img + 256, cfg.padded_vocab)
+                and tuple(caches[0]["k"].shape)
+                == (B, n_img + 256, cfg.n_kv_heads, cfg.head_dim))
+    return dict(image_patches=n_img, tokens=256, flash_launches=launches,
+                max_abs_logit_diff=diff, tol=1e-3, shape_ok=shape_ok,
+                ok=diff <= 1e-3 and shape_ok and bool(
+                    torch.isfinite(logits).all()))
+
+
+def family_decoder(torch, arch: str, cuts: dict, clock_hz: float) -> dict:
+    """One decoder-only family at full width (``cuts`` applied): random
+    weights from a seed, B 2, a 512-token prompt, 8 new tokens. A counted
+    bf16 ``greedy_generate`` with flash on (E in the prefill's attention
+    layers, its first input kept: :func:`counted_generate`); E held on it
+    (:func:`hold_kernel_e`); the same run step by step (its times, its
+    tokens the counted call's); for MoE, one more bf16 prefill at the
+    config's capacity (1.25) whose dropped token-slots are counted
+    (:class:`moe_watch`); an f32 decode (flash off) held against the f32
+    teacher-forced forward (:func:`hold_f32_decode`). MoE runs both at
+    no drop (capacity −1: a prefill at 1.25 may drop and the forward
+    would not) and skips, naming them, the held positions whose router
+    gap is below ``ROUTER_NEAR_TIE`` in some layer of the forward."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_params, make_prefill
+    from repro_torch.models.schema import block_pattern, layer_kinds
+    t = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **cuts)
+    B, S, n = FAM_B, FAM_PROMPT, FAM_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0)
+    prompt = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (B, S)), device="cuda")
+    bf16 = dataclasses.replace(cfg, use_flash_attention=True)
+    toks, e_launches, qkv = counted_generate(torch, bf16, params, prompt, n)
+    n_attn = sum(kind.startswith("attn") for _, kind in layer_kinds(cfg))
+    e = hold_kernel_e(torch, *qkv, clock_hz) if qkv is not None else None
+    del qkv
+    run = decode_run(torch, bf16, params, prompt, n)
+    same = bool(torch.equal(run["tokens"], toks))
+    kv_bytes = cache_bytes(run["caches"]) // (B * (S + n))
+    del run["caches"]
+    row = dict(model=arch, reduced={k: [getattr(full, k), v]
+                                    for k, v in cuts.items()},
+               pattern=block_pattern(cfg), n_layers=cfg.n_layers,
+               d_model=cfg.d_model, H=cfg.n_heads, KH=cfg.n_kv_heads,
+               Dh=cfg.head_dim, B=B, prompt=S, new_tokens=n,
+               flash_launches=e_launches, attention_layers=n_attn,
+               flash=e and dict((k, e[k]) for k in E_FIELDS),
+               bf16=dict(**step_fields(run, B), tokens_equal=same,
+                         cache_bytes_per_token=kv_bytes,
+                         **decode_bound(cfg, "bfloat16", B, S + n,
+                                        kv_bytes)))
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    skip = None
+    if cfg.moe_experts:
+        with moe_watch() as calls:
+            make_prefill(bf16)(params, {"tokens": prompt})
+        dropped = int(sum(c["dropped"] for c in calls))
+        f32 = dataclasses.replace(f32, capacity_factor=-1.0)
+    run32 = decode_run(torch, f32, params, prompt, n)
+    del run32["caches"]
+    with moe_watch() as tcalls:
+        full32 = teacher_logits(torch, f32, params, prompt,
+                                run32["tokens"], whole=True)
+    if cfg.moe_experts:
+        gaps = torch.stack([c["gaps"] for c in tcalls]).amin(0)  # (B, S+n)
+        held = gaps[:, S - 1:S - 1 + n]
+        skip = held < ROUTER_NEAR_TIE
+        row["moe"] = dict(capacity_factor=cfg.capacity_factor,
+                          prefill_dropped_slots=dropped,
+                          prefill_slots=sum(c["slots"] for c in calls),
+                          min_router_gap_held=float(held.min()),
+                          near_ties_held=int(skip.sum()),
+                          near_ties_prompt=int((gaps[:, :S - 1]
+                                                < ROUTER_NEAR_TIE).sum()))
+    hold = hold_f32_decode(run32, full32, skip)
+    del full32
+    row["f32"] = dict(**step_fields(run32, B), hold=hold)
+    checks = [same, hold["ok"], e_launches == n_attn,
+              (e is not None) == (n_attn > 0)]
+    if cfg.mrope:
+        row["vlm_image"] = vlm_image_prefill(torch, cfg, params)
+        checks += [row["vlm_image"]["ok"],
+                   row["vlm_image"]["flash_launches"] == n_attn]
+        e_launches += row["vlm_image"]["flash_launches"]
+    row.update(max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30, seconds=time.perf_counter() - t)
+    log("families", **row)
+    del params, run, run32, toks, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(checks):
+        raise RuntimeError(f"families failed its checks on {arch}: {checks}")
+    return dict(flash_attention=e_launches)
+
+
+def family_whisper(torch, clock_hz: float) -> dict:
+    """whisper-small whole (12 encoder and 12 decoder layers): 1,500 audio
+    frames (``cross_len``, the stub's features from a seed), a 64-token
+    decoder prompt. One counted bf16 run with flash on — the prefill
+    (the encoder's 12 non-causal attentions and the decoder's 12 causal
+    ones through E) and 7 serve steps, greedy, through
+    :func:`decode_run` (``greedy_generate`` refuses an encoder-decoder,
+    as the reference) — whose first non-causal (encoder layer 0, S
+    1,500) and first causal (decoder layer 0, S 64) inputs of E are kept
+    and held (:func:`hold_kernel_e`). Then the reference's
+    ``test_whisper_parity`` at full size, f32, flash off: the prefill
+    and 8 serve steps fed the next tokens, against ``encdec_forward`` in
+    train mode over all 72 tokens, the prefill's every position and each
+    step's logits to 1e-3 (:func:`hold_f32_decode`)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import encdec
+    from repro_torch.models.model import init_params
+    from repro_torch.models.schema import block_pattern
+    t = time.perf_counter()
+    cfg = get_config("whisper-small")
+    B, S, n = FAM_B, WHISPER_PROMPT, FAM_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    audio = {"audio_embeds": torch.randn(B, cfg.cross_len, 128, generator=g,
+                                         device="cuda")}
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab, (B, S + n)), device="cuda")
+    bf16 = dataclasses.replace(cfg, use_flash_attention=True)
+    with kept_flash_inputs() as kept:
+        reset_launch_counts()
+        run = decode_run(torch, bf16, params, toks[:, :S], n, extra=audio)
+        torch.cuda.synchronize()
+        e_launches = launch_counts()["flash_attention"]
+    e_enc = hold_kernel_e(torch, *kept.pop(False), clock_hz, causal=False)
+    e_dec = hold_kernel_e(torch, *kept.pop(True), clock_hz)
+    kv_bytes = cache_bytes(run["caches"]) // (B * (S + n))
+    del run["caches"]
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    run32 = decode_run(torch, f32, params, toks[:, :S], n + 1,
+                       feed=toks[:, S:], extra=audio, keep_prefill=True)
+    del run32["caches"]
+    with torch.inference_mode():
+        full, _, _ = encdec.encdec_forward(
+            f32, params, {"tokens": toks, **audio}, mode="train")
+    pre_diff = float((run32["prefill_logits"] - full[:, :S].float())
+                     .abs().max())
+    hold = hold_f32_decode(run32, full[:, S - 1:].float())
+    del full
+    n_attn = cfg.n_layers + cfg.n_enc_layers
+    row = dict(model="whisper-small", reduced={}, pattern=block_pattern(cfg),
+               n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers,
+               d_model=cfg.d_model, H=cfg.n_heads, KH=cfg.n_kv_heads,
+               Dh=cfg.head_dim, B=B, frames=cfg.cross_len, prompt=S,
+               new_tokens=n, flash_launches=e_launches,
+               attention_layers=n_attn,
+               flash=dict((k, e_dec[k]) for k in E_FIELDS),
+               flash_encoder=dict(S=e_enc["S"], causal=False,
+                                  **{k: e_enc[k] for k in E_FIELDS}),
+               bf16=dict(**step_fields(run, B),
+                         cache_bytes_per_token=kv_bytes),
+               f32=dict(prefill_max_abs_logit_diff=pre_diff, hold=hold),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30, seconds=time.perf_counter() - t)
+    log("families", **row)
+    del params, run, run32, toks, audio
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = [hold["ok"], pre_diff <= 1e-3, e_launches == n_attn]
+    if not all(checks):
+        raise RuntimeError(f"families failed its checks on whisper-small: "
+                           f"{checks}")
+    return dict(flash_attention=e_launches)
+
+
+def phase_families(torch, clock_hz: float) -> dict:
+    """The other model families at full width on the card (item 14b):
+    granite-moe-3b-a800m and qwen2-vl-7b whole, dbrx-132b cut to 2 of 40
+    layers and jamba-1.5-large-398b to one super-block (8 of 72 layers)
+    with 4 of its 16 experts (top-2 kept) — their f32 weights whole,
+    527 and 1,592 GB, do not fit one card — and xlstm-350m whole
+    (:func:`family_decoder`); whisper-small whole
+    (:func:`family_whisper`). Each model is freed before the next.
+    Returns E's launches over the counted runs (one a flash attention
+    layer of each: ``launches_families``)."""
+    t0 = time.perf_counter()
+    start_gib = torch.cuda.memory_allocated() / 2 ** 30
+    total = 0
+    for arch, cuts in FAMILIES:
+        res = (family_whisper(torch, clock_hz) if arch == "whisper-small"
+               else family_decoder(torch, arch, cuts, clock_hz))
+        total += res["flash_attention"]
+    log("families", start_allocated_gib=start_gib, flash_launches=total,
         phase_s=time.perf_counter() - t0)
     return dict(flash_attention=total)
 
@@ -3647,9 +3975,11 @@ def phase_launch():
     """The command-line entry point, as a user runs it, in a subprocess
     of its own (its kernel launches are its own, counted nowhere): the
     batch loop, streaming, streaming with ``--netduel``, whose printout
-    must carry the duel churn, the batch loop with ``--warm-start``, and
+    must carry the duel churn, the batch loop with ``--warm-start``,
     ``--scenario scale_free --strategy lce`` in both loops, whose
-    printout must name the scenario."""
+    printout must name the scenario, and the batch loop with
+    ``--arch jamba-1.5-large-398b`` (its smoke config: the engine's
+    repository runs attention, Mamba and MoE layers)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     runs = []
@@ -3661,9 +3991,11 @@ def phase_launch():
                   ["--scenario", "scale_free", "--strategy", "lce",
                    "--requests", "256"],
                   ["--scenario", "scale_free", "--strategy", "lce",
-                   "--streaming", "--requests", "1024"]):
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-               "granite-3-2b", *extra]
+                   "--streaming", "--requests", "1024"],
+                  ["--arch", "jamba-1.5-large-398b", "--requests", "256"]):
+        arch = [] if "--arch" in extra else ["--arch", "granite-3-2b"]
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *arch,
+               *extra]
         t = time.perf_counter()
         p = subprocess.run(cmd, capture_output=True, text=True, env=env,
                            cwd=ROOT, timeout=600)
@@ -3754,6 +4086,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     wide_counts = phase_generate_wide(torch, clock_hz)
+    family_counts = phase_families(torch, clock_hz)
     phase_launch()
     counts["greedy_gain"] = d["launches"]         # its entry point's run
     counts["flash_attention"] = stream_counts["flash_attention"]
@@ -3806,6 +4139,9 @@ def main() -> int:
             kernels[-1]["launches_generate"] = (     # greedy_generate
                 gen_counts["flash_attention"]
                 + wide_counts["flash_attention"])
+            # the other families' counted runs (item 14b)
+            kernels[-1]["launches_families"] = \
+                family_counts["flash_attention"]
         if r["name"] in gate_counts:             # the gated stream engine
             kernels[-1]["launches_gate"] = gate_counts[r["name"]]
         if r["name"] in shapes:        # A, B: K 448, 65,536; C: O 10⁵, 2e4

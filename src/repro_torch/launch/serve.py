@@ -31,7 +31,9 @@ through the on-path strategy plane that ``--strategy`` picks
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --streaming --scenario scale_free --strategy lce --requests 512
 
-The launcher runs on the card and exits non-zero without one.
+The launcher runs on the card and exits non-zero without one. As the
+reference's, it serves decoder-only archs: an encoder-decoder
+(whisper-small) or M-RoPE (qwen2-vl-7b) arch exits non-zero.
 """
 from __future__ import annotations
 
@@ -165,12 +167,14 @@ def build_engine(args, cfg, params, cat, device):
 
 def main(argv: list[str] | None = None) -> None:
     args = parser().parse_args(argv)
+    cfg = get_smoke_config(args.arch)
+    if cfg.is_encdec or cfg.mrope:
+        raise SystemExit("serve launcher demo supports decoder-only archs")
     try:
         device = resolve_device()
     except RuntimeError as e:
         raise SystemExit(f"[serve] {e}") from e
 
-    cfg = get_smoke_config(args.arch)
     params = model_api.init_params(cfg, 0, device=device)
     cat = catalog_api.embedding_catalog(n=1000, dim=32, seed=0)
     eng, dem = build_engine(args, cfg, params, cat, device)

@@ -1,9 +1,9 @@
-"""Transformer building blocks: RMS norm, RoPE, grouped-query attention,
-SwiGLU MLP.
+"""Transformer building blocks: RMS and layer norm, RoPE and M-RoPE,
+grouped-query attention, SwiGLU and GELU MLPs.
 
-Counterpart of ``repro.models.layers`` (the parts the dense decoder
-uses). Softmax and normalization statistics are computed in f32
-whatever the compute dtype (bf16 on the card).
+Counterpart of ``repro.models.layers``. Softmax and normalization
+statistics are computed in f32 whatever the compute dtype (bf16 on the
+card).
 """
 from __future__ import annotations
 
@@ -21,6 +21,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return ((xf * torch.rsqrt(var + eps)) * scale.float()).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
 def rope_freqs(head_dim: int, theta: float,
                device: torch.device | None = None) -> torch.Tensor:
     """(head_dim/2,) inverse frequencies."""
@@ -33,6 +43,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """Standard (rotate-half) RoPE. x: (B, S, H, Dh); positions: (B, S)."""
     inv = rope_freqs(x.shape[-1], theta, x.device)       # (Dh/2,)
     ang = positions[..., None].float() * inv             # (B, S, Dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple,
+                theta: float = 1e4) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL). x: (B, S, H, Dh); ``positions`` (3, B,
+    S): temporal, height and width ids. The Dh/2 frequency pairs are
+    split into ``sections`` (e.g. (16, 24, 24) for Dh 128), each rotated
+    by its own position stream."""
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover "
+                         f"head_dim / 2 = {dh // 2}")
+    inv = rope_freqs(dh, theta, x.device)                # (Dh/2,)
+    sec_ids = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(sections, device=x.device))       # (Dh/2,)
+    pos_per_freq = positions.float()[sec_ids]            # (Dh/2, B, S)
+    ang = pos_per_freq.movedim(0, -1) * inv              # (B, S, Dh/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -70,3 +103,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = F.silu(torch.einsum("bsd,df->bsf", x, w_gate.to(x.dtype)))
     u = torch.einsum("bsd,df->bsf", x, w_up.to(x.dtype))
     return torch.einsum("bsf,fd->bsd", g * u, w_down.to(x.dtype))
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """Whisper-style GELU MLP with biases. The GELU is the tanh form,
+    ``jax.nn.gelu``'s default (the exact erf form differs by ~1e-3)."""
+    h = F.gelu(torch.einsum("bsd,df->bsf", x, w_up.to(x.dtype))
+               + b_up.to(x.dtype), approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h, w_down.to(x.dtype)) \
+        + b_down.to(x.dtype)

@@ -1,14 +1,18 @@
 """Public model API: build (init, loss, train-forward, prefill, serve-step,
 cache, greedy sampler) from an ArchConfig.
 
-Counterpart of ``repro.models.model`` for the dense decoder.
+Counterpart of ``repro.models.model``, for every architecture.
 ``init_params`` returns the model itself — an ``nn.Module`` whose
 parameters play the role of the reference's parameter tree — with
 random weights drawn on ``device`` from a seeded ``torch.Generator``
 (the reference's ``jax.random`` draws are not reproduced; tests that
 compare against it load the JAX weights through models/convert.py).
 Every function runs with the config it is given, not the one the
-weights were built with (``DecoderLM.forward``). Parameters keep
+weights were built with (``DecoderLM.check_cfg``). A batch is a dict:
+``tokens`` (B, S), and where the family takes them ``image_embeds`` (B,
+S_img, 1280) with ``mrope_positions`` (3, B, S_img + S) (the VLM),
+``audio_embeds`` (B, S_frames, 128) (the encoder-decoder), ``positions``
+(B, S); ``labels`` and ``loss_mask`` for the loss. Parameters keep
 ``requires_grad=False``: the gradient step is a later slice.
 """
 from __future__ import annotations
@@ -21,8 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
-from repro_torch.models.schema import param_schema
+from repro_torch.models import encdec, transformer
+from repro_torch.models.schema import layer_kinds, param_schema
 from repro_torch.models.transformer import DecoderLM, _kv_quant
 
 AUX_LOSS_WEIGHT = 0.01
@@ -37,15 +41,32 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     schema = param_schema(cfg)
-    block = schema.pop("block")
+    blocks = schema.pop("blocks")
+    enc = schema.pop("enc_blocks", {}).get("enc", {})
     dtype = getattr(torch, cfg.param_dtype)
     with torch.no_grad():
         for name in sorted(schema):
             getattr(model, name).copy_(schema[name].make(gen, dtype, dev))
-        for blk in model.blocks:
-            for name in sorted(block):
-                getattr(blk, name).copy_(block[name].make(gen, dtype, dev))
+        for (key, _), blk in zip(layer_kinds(cfg), model.blocks):
+            for name in sorted(blocks[key]):
+                getattr(blk, name).copy_(blocks[key][name].make(gen, dtype,
+                                                                dev))
+        for blk in model.enc_blocks:
+            for name in sorted(enc):
+                getattr(blk, name).copy_(enc[name].make(gen, dtype, dev))
     return model
+
+
+def _forward(cfg: ArchConfig, params: DecoderLM, batch: dict, *,
+             mode: str, caches: list | None = None, pos: int = 0):
+    """(logits, caches, aux) of ``batch``: the encoder-decoder through
+    ``encdec.encdec_forward``, every other family through the stack."""
+    if cfg.is_encdec:
+        return encdec.encdec_forward(cfg, params, batch, mode=mode,
+                                     caches=caches, pos=pos)
+    return params.run(batch["tokens"], batch.get("positions"), cfg, mode,
+                      caches, pos, image_embeds=batch.get("image_embeds"),
+                      mrope_positions=batch.get("mrope_positions"))
 
 
 def loss_fn(cfg: ArchConfig, params: DecoderLM,
@@ -54,9 +75,9 @@ def loss_fn(cfg: ArchConfig, params: DecoderLM,
     ``tokens`` (B, S) and ``labels`` (B, S_lab); the last S_lab positions
     are scored. An optional ``loss_mask`` (B, S_lab) zeroes out positions;
     the denominator is its sum, floored at 1. Returns (total, {"ce",
-    "aux", "zloss"}), f32 scalars; ``aux`` is 0 for the dense family."""
-    logits, _ = params(batch["tokens"], batch.get("positions"), cfg=cfg,
-                       mode="train")
+    "aux", "zloss"}), f32 scalars; ``aux`` is the MoE load-balance loss
+    summed over the layers (0 without MoE)."""
+    logits, _, aux = _forward(cfg, params, batch, mode="train")
     labels = batch["labels"]
     logits_f = logits[:, -labels.shape[1]:, :].float()
     logz = torch.logsumexp(logits_f, dim=-1)
@@ -67,7 +88,6 @@ def loss_fn(cfg: ArchConfig, params: DecoderLM,
     denom = mask.sum().clamp_min(1.0)
     ce = (nll * mask).sum() / denom
     zloss = (logz ** 2 * mask).sum() / denom
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     total = ce + AUX_LOSS_WEIGHT * aux + Z_LOSS_WEIGHT * zloss
     return total, {"ce": ce, "aux": aux, "zloss": zloss}
 
@@ -84,7 +104,8 @@ def make_prefill(cfg: ArchConfig) -> Callable:
     as in the reference. ``params`` is the model."""
     def prefill(params: DecoderLM, batch: dict):
         with torch.inference_mode():
-            return params(batch["tokens"], batch.get("positions"), cfg=cfg)
+            logits, caches, _ = _forward(cfg, params, batch, mode="prefill")
+        return logits, caches
     return prefill
 
 
@@ -93,15 +114,23 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
     (B, 1, V), caches). ``pos`` is the current sequence length (the new
     token's position). The step writes the new K/V into the caller's
     ``caches`` in place (a static shape) and returns that same list;
-    a ``pos`` outside the cache raises ``ValueError``."""
+    a ``pos`` outside the cache raises ``ValueError``. With M-RoPE the
+    step's position ids are ``pos`` on all three streams; an
+    encoder-decoder reads its encoder output from the cache."""
     def serve_step(params: DecoderLM, tokens: torch.Tensor, caches: list,
                    pos: int):
         B = tokens.shape[0]
-        positions = torch.full((B, 1), pos, dtype=torch.long,
-                               device=tokens.device)
+        batch = {"tokens": tokens,
+                 "positions": torch.full((B, 1), pos, dtype=torch.long,
+                                         device=tokens.device)}
+        if cfg.mrope:
+            batch["mrope_positions"] = torch.full(
+                (3, B, 1), pos, dtype=torch.long, device=tokens.device)
         with torch.inference_mode():
-            return params(tokens, positions, cfg=cfg, mode="decode",
-                          caches=caches, pos=pos)
+            logits, caches_out, _ = _forward(cfg, params, batch,
+                                             mode="decode", caches=caches,
+                                             pos=pos)
+        return logits, caches_out
     return serve_step
 
 
@@ -114,12 +143,16 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
 
 def _pad_caches(cfg: ArchConfig, caches: list, max_len: int) -> list:
     """Pad prefill KV caches along the sequence axis to ``max_len``,
-    quantizing them first when ``cfg.kv_cache_dtype == "int8"``. Returns
-    new dicts; the prefill's tensors are not changed."""
+    quantizing them first when ``cfg.kv_cache_dtype == "int8"``. Only
+    the self-attention ``k``/``v`` grow: recurrent states and the cross
+    K/V are fixed-size. Returns new dicts; the prefill's tensors are not
+    changed."""
     out = []
     for layer in caches:
         entry = dict(layer)
         for key in ("k", "v"):
+            if key not in entry:
+                continue
             x = entry[key]
             if cfg.kv_cache_dtype == "int8" and x.dtype != torch.int8:
                 entry[key], entry[key + "_s"] = _kv_quant(x)
@@ -142,11 +175,20 @@ def greedy_generate(cfg: ArchConfig, params: DecoderLM,
     padded to ``max_len`` (default S + n_steps), then ``n_steps`` − 1
     serve steps. Returns the (B, n_steps) generated tokens (int64, on
     the prompt's device). The argmax is over the padded vocabulary and
-    takes the first index of a tie, as ``jnp.argmax``."""
-    S = prompt.shape[1]
+    takes the first index of a tie, as ``jnp.argmax``. With M-RoPE the
+    prompt's position ids are ``arange(S)`` on all three streams. An
+    encoder-decoder raises ``NotImplementedError``, as the reference
+    (its prefill needs ``audio_embeds``)."""
+    B, S = prompt.shape
     max_len = max_len or (S + n_steps)
+    if cfg.is_encdec:
+        raise NotImplementedError("use the serving engine for enc-dec")
     step = make_serve_step(cfg)
-    logits, caches = make_prefill(cfg)(params, {"tokens": prompt})
+    batch = {"tokens": prompt}
+    if cfg.mrope:
+        batch["mrope_positions"] = torch.arange(
+            S, device=prompt.device)[None, None, :].expand(3, B, S)
+    logits, caches = make_prefill(cfg)(params, batch)
     with torch.inference_mode():
         caches = _pad_caches(cfg, caches, max_len)
     tok = logits[:, -1:, :].argmax(dim=-1)

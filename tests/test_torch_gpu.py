@@ -368,6 +368,13 @@ FLASH_CASES = [
     (1, 1024, 1024, 56, 8, 128, True),
     (1, 1024, 1024, 64, 8, 128, True),
     (1, 1000, 1000, 56, 8, 128, True),
+    # the other families' attention: whisper-small's encoder (non-causal,
+    # 1,500 frames), qwen2-vl-7b (7 query heads a KV head), dbrx-132b and
+    # granite-moe-3b-a800m
+    (2, 1500, 1500, 12, 12, 64, False),
+    (2, 512, 512, 28, 4, 128, True),
+    (2, 512, 512, 48, 8, 128, True),
+    (2, 512, 512, 24, 8, 64, True),
 ]
 
 
@@ -453,6 +460,66 @@ def test_serve_step_on_card_matches_cpu(cuda, kv):
             else:
                 torch.testing.assert_close(g[key], r[key], rtol=0,
                                            atol=1e-4)
+
+
+FAMILIES = ["granite-moe-3b-a800m", "dbrx-132b", "jamba-1.5-large-398b",
+            "xlstm-350m", "whisper-small", "qwen2-vl-7b"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_on_card_matches_cpu(cuda, arch):
+    """Each family's smoke config in f32 with flash on (kernel E in the
+    prefill on the card, ``flash_ref`` on the CPU): a prefill (whisper
+    with 64 audio frames, qwen2-vl with 8 image patches before the text
+    and a patch grid of M-RoPE ids), its padded cache and three serve
+    steps on the card against the same calls on the CPU, on the same
+    weights. Logits to 1e-4 and every cache entry (K/V, cross K/V,
+    Mamba, mLSTM and sLSTM states) to 1e-4: f32 sums in other orders at
+    smoke width."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as model_api
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              use_flash_attention=True)
+    host = model_api.init_params(cfg, 0, device="cpu")
+    card = copy.deepcopy(host).to(cuda)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)))}
+    if cfg.is_encdec:
+        batch["audio_embeds"] = torch.as_tensor(
+            rng.standard_normal((2, cfg.cross_len, 128)), dtype=torch.float32)
+    if cfg.mrope:
+        batch["image_embeds"] = torch.as_tensor(
+            rng.standard_normal((2, 8, 1280)), dtype=torch.float32)
+        i = np.arange(8)
+        ids = np.concatenate([np.stack([0 * i, i // 4, i % 4]),
+                              np.broadcast_to(2 + np.arange(16), (3, 16))],
+                             axis=1)
+        batch["mrope_positions"] = torch.as_tensor(
+            np.repeat(ids[:, None], 2, axis=1))
+    S = 24 if cfg.mrope else 16
+    runs = []
+    for model, dev in ((host, "cpu"), (card, cuda)):
+        n0 = flash_cuda.launches
+        logits, caches = model_api.make_prefill(cfg)(
+            model, {k: v.to(dev) for k, v in batch.items()})
+        n_attn = sum(b.kind.startswith("attn") for b in model.blocks)
+        assert flash_cuda.launches - n0 == (
+            0 if dev == "cpu" else n_attn + len(model.enc_blocks))
+        caches = model_api._pad_caches(cfg, caches, S + 3)
+        out = [logits[:, -1:]]
+        step = model_api.make_serve_step(cfg)
+        for t in range(3):
+            tok = torch.full((2, 1), 7 + t, device=dev)
+            lg, caches = step(model, tok, caches, S + t)
+            out.append(lg)
+        runs.append((torch.cat(out, 1).cpu(),
+                     [{k: x.cpu() for k, x in c.items()} for c in caches]))
+    (ref, ref_c), (got, got_c) = runs
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    for g, r in zip(got_c, ref_c):
+        assert sorted(g) == sorted(r)
+        for key in g:
+            torch.testing.assert_close(g[key], r[key], rtol=0, atol=1e-4)
 
 
 def test_flash_kernel_reads_strided_layout_and_kv_len(cuda):

@@ -5,8 +5,11 @@ Its two loops run on a CPU engine at the reference launcher's sizes
 (granite's smoke config, ``embedding_catalog(n=1000, dim=32, seed=0)``,
 Zipf α = 1.0, batch 16, 256 requests, ``calibrate()`` first), with and
 without ``--warm-start``, and with ``--scenario`` through the strategy
-plane (no calibration); and the command itself refuses to run without a
-card. The loops run on the card in chip_smoke.py's ``launch`` phase.
+plane (no calibration); the batch loop also behind jamba's smoke model
+(attention, Mamba and MoE layers) as the repository; and the command
+itself refuses to run without a card, and refuses an encoder-decoder or
+M-RoPE arch (whisper-small, qwen2-vl-7b) as the reference's launcher
+does. The loops run on the card in chip_smoke.py's ``launch`` phase.
 ``--netduel`` is held in tests/test_torch_duel_engine.py.
 """
 import os
@@ -168,3 +171,28 @@ def test_command_without_a_card_exits_nonzero():
     assert res.returncode != 0
     assert "no CUDA device is available" in res.stderr
     assert "hit-rate" not in res.stdout
+
+
+def test_batch_loop_serves_a_hybrid_repository(capsys):
+    """``--arch jamba-1.5-large-398b``: the engine's misses prefill through
+    attention, Mamba and MoE layers."""
+    args = launch.parser().parse_args(["--arch", "jamba-1.5-large-398b",
+                                       "--requests", "128"])
+    eng, cfg, cat = _engine(args)
+    kinds = {blk.kind for blk in eng.params.blocks}
+    assert kinds == {"attn+mlp", "mamba+moe", "mamba+mlp"}
+    launch.run_batch_loop(eng, cfg, demand_api.zipf(cat, alpha=1.0, seed=1),
+                          args)
+    assert "[serve] placement refreshed" in capsys.readouterr().out
+    assert eng.stats.n_requests == 128 and eng.stats.model_calls > 0
+    assert eng.stats.mean_cost < eng.ecfg.h_model
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-7b"])
+def test_encdec_and_mrope_archs_are_refused(arch, capsys):
+    """The reference launcher's refusal (``src/repro/launch/serve.py``),
+    with its message, before any device is touched."""
+    assert arch in launch.parser()._option_string_actions["--arch"].choices
+    with pytest.raises(SystemExit, match="supports decoder-only archs"):
+        launch.main(["--arch", arch])
+    assert "hit-rate" not in capsys.readouterr().out
