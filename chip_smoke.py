@@ -204,13 +204,31 @@ Phases, one line each before the last:
    non-causal in the encoder, causal in the decoder, both held) and
    serve steps, then the prefill and 8 serve steps in f32 held against
    ``encdec_forward`` in train mode.
-9. ``launch`` — ``python -m repro_torch.launch.serve`` in a subprocess,
-   batch loop, streaming, streaming with ``--netduel``, the batch loop
-   with ``--warm-start``, and ``--scenario scale_free --strategy lce``
-   in both loops, and the batch loop with ``--arch
-   jamba-1.5-large-398b``; each must exit 0 and print its final
-   ``[serve] … hit-rate`` line (and the duel churn with ``--netduel``, the scenario
-   with ``--scenario``).
+   Then ``train``: training (item 14c), no kernel on its path (kernel E
+   has no backward and training runs with ``use_flash_attention=False``,
+   as the reference's). ``train()`` on granite-3-2b whole (2.53 B f32
+   parameters, bf16 compute, remat on), ``SyntheticLMData(vocab=49155,
+   batch=4, seq=512)``, 6 steps from seed 0 with f32 moments, then 6
+   with int8 ones: every loss finite, peak memory under 75 GiB, the
+   step's p50 and p95 (CUDA events, the first step apart), tokens/s,
+   the bound (8·N·T at the bf16 peak, then the update's bytes), and one
+   more step profiled (device time and events, idle share); before
+   them one SGD step of 0.3 on the first batch's gradient, which must
+   lower its loss. Every parameter's gradient on the card held against
+   the port's CPU gradient of the same weights (1e-4 of each leaf's
+   largest |g|, f32 compute): granite at full width cut to 2 layers (B
+   2, S 128) and the nine other archs at their smoke configs. Kill and
+   resume at the 2-layer cut (6 straight steps against 4, a checkpoint
+   and a resumed 2; 2e-4, and whether bitwise). ``python -m
+   repro_torch.launch.train --arch granite-3-2b --steps 20`` in a
+   subprocess: exit 0 and a finite final loss.
+9. ``launch`` — ``python -m repro_torch.launch.serve`` in subprocesses
+   started together on the card: the batch loop, streaming, streaming
+   with ``--netduel``, the batch loop with ``--warm-start``, and
+   ``--scenario scale_free --strategy lce`` in both loops, and the batch
+   loop with ``--arch jamba-1.5-large-398b``; each must exit 0 and print
+   its final ``[serve] … hit-rate`` line (and the duel churn with
+   ``--netduel``, the scenario with ``--scenario``).
 10. ``kernels`` — one JSON object with every kernel's numbers; A's and
    B's entries also carry each of their two shapes (K 448 and 65,536),
    C's its two (R = O = 10⁵ and 20,000) and its times past 8 caches; F's
@@ -2886,6 +2904,329 @@ def phase_families(torch, clock_hz: float) -> dict:
     return dict(flash_attention=total)
 
 
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 6
+GRAD_B, GRAD_S = 2, 128                # the card-against-CPU gradient holds
+GRAD_TOL = 1e-4     # f32 gradient error / the leaf's max |g| (CPU suite's)
+SGD_LR = 0.3        # tests/test_arch_smoke.py's one-step SGD drop
+TRAIN_PEAK_GIB = 75.0
+
+
+def train_batch(cfg, rng, B: int, S: int) -> dict:
+    """numpy inputs of a train step of ``cfg``'s family: tokens and labels
+    (B, S), and where the family takes them 64 audio frames or 8 image
+    patches with M-RoPE ids (the CPU suite's ``family_cases.make_batch``,
+    which imports JAX and so is not imported here)."""
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)),
+             "labels": rng.integers(0, cfg.vocab, (B, S))}
+    if cfg.is_encdec:
+        batch["audio_embeds"] = rng.standard_normal(
+            (B, 64, 128)).astype(np.float32)
+    if cfg.mrope:
+        batch["image_embeds"] = rng.standard_normal(
+            (B, 8, 1280)).astype(np.float32)
+        batch["mrope_positions"] = np.broadcast_to(
+            np.arange(S + 8)[None, None], (3, B, S + 8)).copy()
+    return batch
+
+
+def on_device(torch, batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v).to(device).long()
+            if np.issubdtype(v.dtype, np.integer)
+            else torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def hold_grads(torch, cfg, model_cpu, batch: dict, name: str) -> dict:
+    """The gradient of every parameter on the card against the port's CPU
+    gradient of the same weights and batch, each leaf's error over its
+    largest |g| (``GRAD_TOL``). A MoE family's loss is masked, row by
+    row, from the first position whose router gap is below
+    ``ROUTER_NEAR_TIE`` on (an expert the CPU and the card may choose
+    apart, which moves every later position); the masked count is
+    logged, and at least half the positions must stay scored."""
+    import copy
+    from repro_torch.models.model import loss_and_grads, loss_fn
+    masked = 0
+    if cfg.moe_experts:
+        with torch.no_grad(), moe_watch() as calls:
+            loss_fn(cfg, model_cpu, on_device(torch, batch, "cpu"))
+        gaps = torch.stack([c["gaps"] for c in calls]).amin(0)
+        gaps = gaps[:, -batch["labels"].shape[1]:].numpy()
+        mask = np.ones(gaps.shape, np.float32)
+        for r, row in enumerate(gaps < ROUTER_NEAR_TIE):
+            if row.any():
+                mask[r, int(np.argmax(row)):] = 0.0
+        masked = int((mask == 0).sum())
+        batch = dict(batch, loss_mask=mask)
+    t = time.perf_counter()
+    loss_c, _, g_cpu = loss_and_grads(cfg, model_cpu,
+                                      on_device(torch, batch, "cpu"))
+    cpu_s = time.perf_counter() - t
+    model = copy.deepcopy(model_cpu).to("cuda")
+    loss_g, _, g_gpu = loss_and_grads(cfg, model,
+                                      on_device(torch, batch, "cuda"))
+    worst, worst_leaf, finite = 0.0, None, True
+    for leaf, gc_ in g_cpu.items():
+        gg = g_gpu[leaf].cpu()
+        finite &= bool(torch.isfinite(gg).all())
+        scale = float(gc_.abs().max())
+        err = float((gg - gc_).abs().max()) / scale if scale > 0 else \
+            float((gg - gc_).abs().max())
+        if err > worst:
+            worst, worst_leaf = err, leaf
+    del model, g_gpu
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    return dict(model=name, leaves=len(g_cpu), max_err_over_leaf_max=worst,
+                worst_leaf=worst_leaf, tolerance=GRAD_TOL,
+                loss_rel_err=loss_err, masked_positions=masked,
+                cpu_s=cpu_s,
+                ok=finite and worst <= GRAD_TOL and loss_err <= GRAD_TOL
+                and masked <= batch["labels"].size // 2)
+
+
+def sgd_drop(torch, cfg, data) -> dict:
+    """The first step's batch, its gradient on fresh weights (seed 0, as
+    the trainer's), and one SGD step of ``SGD_LR`` on it: the loss of
+    that batch must fall (tests/test_arch_smoke.py's form)."""
+    from repro_torch.models.model import init_params, loss_and_grads, loss_fn
+    model = init_params(cfg, seed=0)
+    batch = on_device(torch, data.batch_at(0), "cuda")
+    loss0, _, grads = loss_and_grads(cfg, model, batch)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.sub_(SGD_LR * grads[name])
+        del grads
+        loss1, _ = loss_fn(cfg, model, batch)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(lr=SGD_LR, loss0=float(loss0), loss1=float(loss1),
+                ok=float(loss1) < float(loss0))
+
+
+def train_bound(n_params: int, n_rows: int, tokens: int,
+                moment_dtype: str) -> dict:
+    """The step's least time: the forward and backward with remat, 8·N·T
+    operations at the dense bf16 peak (the attention scores, ~3 % at S
+    512, left out), then the update, which follows them, its bytes at
+    the memory rate: per parameter p, g, m and v read and p, m and v
+    written (f32 moments 28 B; int8 ones 1 B each, 16 B, and per row of
+    the last axis, ``n_rows`` in all, the f32 scales of m and v read and
+    written, 16 B). The two add: the update starts after the backward
+    ends."""
+    mom = {"float32": 4, "bfloat16": 2, "int8": 1}[moment_dtype]
+    n_bytes = n_params * (4 + 4 + 2 * mom + 4 + 2 * mom)
+    if moment_dtype == "int8":
+        n_bytes += n_rows * 2 * (4 + 4)
+    flops = 8.0 * n_params * tokens
+    f_ms = flops / PEAK_BF16_FLOPS * 1e3
+    b_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return dict(step_flops=flops, update_bytes=n_bytes,
+                flops_ms=f_ms, update_bytes_ms=b_ms, bound_ms=f_ms + b_ms)
+
+
+def step_profile_train(torch, cfg, model, tcfg, data) -> dict:
+    """Two more steps of the trained model (fresh moments): one split by
+    CUDA events into its forward and backward and its AdamW update, one
+    through the trainer's own step function under torch.profiler (its
+    device time, its device events, which the host launches one by one,
+    and the 8 kernels with the most device time); the idle share is read
+    against the run's step p50."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.model import loss_and_grads
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train import make_step
+    state = adamw_init(dict(model.named_parameters()), tcfg.opt)
+    batch = on_device(torch, data.batch_at(0), "cuda")
+    params = dict(model.named_parameters())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(2):                       # a warm-up, then the timed one
+        ev[0].record()
+        _, _, grads = loss_and_grads(cfg, model, batch)
+        ev[1].record()
+        adamw_update(grads, state, params, tcfg.opt, lr_scale=1.0)
+        ev[2].record()
+        del grads
+    torch.cuda.synchronize()
+    split = dict(forward_backward_ms=ev[0].elapsed_time(ev[1]),
+                 update_ms=ev[1].elapsed_time(ev[2]))
+    step = make_step(cfg, tcfg.opt, tcfg.warmup, tcfg.steps)
+    for _ in range(3):        # a window now and then lacks its device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(model, state, batch)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
+    del state
+    by_name: dict = {}
+    for e in dev:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(split, device_ms=sum(t for t, _ in by_name.values()),
+                device_events=len(dev),
+                top_kernels=[dict(name=k[:80], ms=t, count=n)
+                             for k, (t, n) in top])
+
+
+def train_full(torch, cfg, data, moment_dtype: str) -> dict:
+    """``train()`` at full width and depth: ``TRAIN_STEPS`` steps from
+    seed 0, no checkpoint; step times from the trainer's CUDA events."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, train
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(steps=TRAIN_STEPS, ckpt_every=0, log_every=1000,
+                       opt=AdamWConfig(lr=1e-3, weight_decay=0.01,
+                                       moment_dtype=moment_dtype))
+    t = time.perf_counter()
+    out = train(cfg, tcfg, data, resume=False, log=lambda *a: None)
+    seconds = time.perf_counter() - t
+    model = out.pop("params")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_rows = sum(p.numel() // p.shape[-1] for p in model.parameters())
+    prof = step_profile_train(torch, cfg, model, tcfg, data)
+    del model
+    ms = np.array(out["step_ms"])
+    steady = ms[1:]
+    p50 = float(np.percentile(steady, 50))
+    row = dict(moment_dtype=moment_dtype, losses=out["losses"],
+               step_ms=ms.tolist(), first_step_ms=float(ms[0]),
+               p50_ms=p50, p95_ms=float(np.percentile(steady, 95)),
+               tokens_per_s=TRAIN_B * TRAIN_S / (p50 / 1e3),
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30, n_params=n_params, seconds=seconds,
+               **train_bound(n_params, n_rows, TRAIN_B * TRAIN_S,
+                             moment_dtype))
+    row["bound_share"] = row["bound_ms"] / p50
+    row["profile"] = dict(prof, idle_share=1 - prof["device_ms"] / p50)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def kill_and_resume(torch, cfg) -> dict:
+    """At the 2-layer cut: 6 steps straight, then 4 steps checkpointed
+    (the "crash") and a resumed run from step 4; its 2 losses against the
+    straight run's last 2, to the reference test's 2e-4 (and whether they
+    are bitwise)."""
+    import shutil
+    import tempfile
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.train import TrainConfig, train
+    data = SyntheticLMData(vocab=cfg.vocab, batch=GRAD_B, seq=GRAD_S)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        quiet = dict(log=lambda *a: None)
+        full = train(cfg, TrainConfig(steps=6, ckpt_every=0, warmup=2),
+                     data, resume=False, **quiet)
+        tcfg = TrainConfig(steps=6, ckpt_dir=ckpt, ckpt_every=4, warmup=2)
+        train(cfg, tcfg, data, resume=False, stop_after=4, **quiet)
+        logs = []
+        t = time.perf_counter()
+        resumed = train(cfg, tcfg, data, log=logs.append)
+        resume_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    a, b = np.array(resumed["losses"]), np.array(full["losses"][4:])
+    ok = (logs[:1] == ["[train] resumed from step 4"] and a.shape == (2,)
+          and bool(np.allclose(a, b, rtol=2e-4, atol=2e-4)))
+    del full, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(straight=b.tolist(), resumed=a.tolist(),
+                bitwise=bool(np.array_equal(a, b)),
+                max_abs_diff=float(np.abs(a - b).max()),
+                resumed_run_s=resume_s, ok=ok)
+
+
+def train_launcher() -> dict:
+    """``python -m repro_torch.launch.train --arch granite-3-2b --steps
+    20`` in a subprocess (its checkpoints in a fresh directory): exit 0
+    and a finite final loss on its last line."""
+    import os
+    import shutil
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_launch_train_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--steps", "20", "--ckpt", ckpt]
+    t = time.perf_counter()
+    try:
+        p = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=ROOT, timeout=600)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    last = p.stdout.strip().splitlines()[-1] if p.stdout.strip() else ""
+    m = re.search(r"final loss (\S+)$", last)
+    loss = float(m.group(1)) if m else float("nan")
+    return dict(rc=p.returncode, line=last, final_loss=loss,
+                seconds=time.perf_counter() - t,
+                stderr_tail=p.stderr[-2000:] if p.returncode else "",
+                ok=p.returncode == 0 and bool(np.isfinite(loss)))
+
+
+def phase_train(torch) -> None:
+    """Training (item 14c) on the card. No kernel runs on this path: the
+    reference trains with ``use_flash_attention=False`` and kernel E has
+    no backward (``flash_attention`` refuses a gradient).
+
+    * granite-3-2b at full width and depth (40 layers, d 2048, f32
+      parameters, bf16 compute, remat on) through ``train()`` on
+      ``SyntheticLMData(vocab=49155, batch=4, seq=512)``: 6 steps with
+      f32 moments, then 6 with int8 moments, each from seed 0: finite
+      losses, peak memory under 75 GiB, step p50 / p95 (the first step
+      apart), tokens/s, the step's bound; before them the first step's
+      batch and gradient with one SGD step (the loss must fall);
+    * gradient holds: granite cut to 2 layers at full width (f32
+      compute, B 2, S 128) and every other arch at its smoke config,
+      every parameter's gradient on the card against the port's CPU
+      gradient of the same weights;
+    * kill and resume at the 2-layer cut;
+    * the launcher, ``python -m repro_torch.launch.train``."""
+    from repro_torch.configs.registry import (get_config, get_smoke_config,
+                                              list_archs)
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    data = SyntheticLMData(vocab=cfg.vocab, batch=TRAIN_B, seq=TRAIN_S)
+    sgd = sgd_drop(torch, cfg, data)
+    runs = [train_full(torch, cfg, data, md) for md in ("float32", "int8")]
+    for r in runs:
+        log("train", arch=TRAIN_ARCH, B=TRAIN_B, S=TRAIN_S,
+            remat=cfg.remat, compute_dtype=cfg.compute_dtype, **r)
+
+    cut = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    holds = [hold_grads(torch, cut, init_params(cut, 0, device="cpu"),
+                        train_batch(cut, np.random.default_rng(0), GRAD_B,
+                                    GRAD_S), f"{TRAIN_ARCH} (2 layers)")]
+    for arch in list_archs():
+        if arch == TRAIN_ARCH:
+            continue
+        small = dataclasses.replace(get_smoke_config(arch),
+                                    compute_dtype="float32")
+        holds.append(hold_grads(
+            torch, small, init_params(small, 0, device="cpu"),
+            train_batch(small, np.random.default_rng(0), 2, 24), arch))
+    resume = kill_and_resume(torch, dataclasses.replace(cfg, n_layers=2))
+    launcher = train_launcher()
+    log("train", sgd_first_step=sgd, grad_holds=holds,
+        kill_and_resume=resume, launcher=launcher,
+        phase_s=time.perf_counter() - t0)
+    checks = dict(
+        finite=all(np.isfinite(r["losses"]).all() for r in runs),
+        memory=all(r["max_memory_allocated_gib"] < TRAIN_PEAK_GIB
+                   for r in runs),
+        sgd=sgd["ok"], grads=all(h["ok"] for h in holds),
+        resume=resume["ok"], launcher=launcher["ok"])
+    if not all(checks.values()):
+        raise RuntimeError(f"train failed its checks: {checks}")
+
+
 def stream_run(torch, params, mesh=None) -> dict:
     """One run of the ``stream`` configuration: granite-3-2b at full
     width with ``use_flash_attention=True`` behind ``StreamDriver`` (4
@@ -3979,41 +4320,58 @@ def phase_launch():
     ``--scenario scale_free --strategy lce`` in both loops, whose
     printout must name the scenario, and the batch loop with
     ``--arch jamba-1.5-large-398b`` (its smoke config: the engine's
-    repository runs attention, Mamba and MoE layers)."""
+    repository runs attention, Mamba and MoE layers). The seven runs
+    are started together and share the card (each run's ``seconds``
+    is its time from the common start to its exit); each has its own
+    600 s limit, and every one is waited for before a failure raises."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    runs = []
-    for extra in (["--requests", "256"],
-                  ["--streaming", "--streams", "4", "--requests", "1024"],
-                  ["--streaming", "--streams", "4", "--requests", "1024",
-                   "--netduel"],
-                  ["--requests", "256", "--warm-start"],
-                  ["--scenario", "scale_free", "--strategy", "lce",
-                   "--requests", "256"],
-                  ["--scenario", "scale_free", "--strategy", "lce",
-                   "--streaming", "--requests", "1024"],
-                  ["--arch", "jamba-1.5-large-398b", "--requests", "256"]):
+    extras = (["--requests", "256"],
+              ["--streaming", "--streams", "4", "--requests", "1024"],
+              ["--streaming", "--streams", "4", "--requests", "1024",
+               "--netduel"],
+              ["--requests", "256", "--warm-start"],
+              ["--scenario", "scale_free", "--strategy", "lce",
+               "--requests", "256"],
+              ["--scenario", "scale_free", "--strategy", "lce",
+               "--streaming", "--requests", "1024"],
+              ["--arch", "jamba-1.5-large-398b", "--requests", "256"])
+    t0 = time.perf_counter()
+
+    def run(extra):
         arch = [] if "--arch" in extra else ["--arch", "granite-3-2b"]
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", *arch,
                *extra]
-        t = time.perf_counter()
-        p = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                           cwd=ROOT, timeout=600)
-        lines = [ln for ln in p.stdout.splitlines()
-                 if ln.startswith("[serve]")]
+        try:
+            p = subprocess.run(cmd, capture_output=True, text=True,
+                               env=env, cwd=ROOT, timeout=600)
+            rc, stdout, stderr = p.returncode, p.stdout, p.stderr
+        except subprocess.TimeoutExpired:          # killed by ``run``
+            rc, stdout, stderr = "timeout", "", "killed after 600 s"
+        return rc, stdout, stderr, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(extras)) as pool:
+        results = list(pool.map(run, extras))
+    runs, failed = [], None
+    for extra, (rc, stdout, stderr, seconds) in zip(extras, results):
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("[serve]")]
         final = next((ln for ln in reversed(lines) if "hit-rate" in ln), None)
-        runs.append(dict(args=extra, rc=p.returncode,
-                         seconds=time.perf_counter() - t, serve_lines=lines))
+        runs.append(dict(args=extra, rc=rc, seconds=seconds,
+                         serve_lines=lines))
         if final:
             print(final, flush=True)
         churn = "--netduel" not in extra or any(
             "duel churn" in ln for ln in lines)
         named = "--scenario" not in extra or any(
             "[serve] scenario scale_free" in ln for ln in lines)
-        if p.returncode != 0 or final is None or not churn or not named:
-            log("launch", runs=runs, stderr_tail=p.stderr[-3000:])
-            raise RuntimeError(f"the launcher failed: {' '.join(extra)}")
-    log("launch", runs=runs)
+        if failed is None and (rc != 0 or final is None or not churn
+                               or not named):
+            failed = (extra, stderr[-3000:])
+    if failed:
+        log("launch", runs=runs, stderr_tail=failed[1])
+        raise RuntimeError(f"the launcher failed: {' '.join(failed[0])}")
+    log("launch", runs=runs, phase_s=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -4087,6 +4445,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide_counts = phase_generate_wide(torch, clock_hz)
     family_counts = phase_families(torch, clock_hz)
+    phase_train(torch)
     phase_launch()
     counts["greedy_gain"] = d["launches"]         # its entry point's run
     counts["flash_attention"] = stream_counts["flash_attention"]

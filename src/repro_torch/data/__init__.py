@@ -1,0 +1,5 @@
+"""The deterministic synthetic LM data pipeline (counterpart of
+``repro.data``)."""
+from repro_torch.data.pipeline import SyntheticLMData
+
+__all__ = ["SyntheticLMData"]

@@ -12,8 +12,11 @@ weights were built with (``DecoderLM.check_cfg``). A batch is a dict:
 ``tokens`` (B, S), and where the family takes them ``image_embeds`` (B,
 S_img, 1280) with ``mrope_positions`` (3, B, S_img + S) (the VLM),
 ``audio_embeds`` (B, S_frames, 128) (the encoder-decoder), ``positions``
-(B, S); ``labels`` and ``loss_mask`` for the loss. Parameters keep
-``requires_grad=False``: the gradient step is a later slice.
+(B, S); ``labels`` and ``loss_mask`` for the loss. ``init_params``
+returns parameters with ``requires_grad=False``, as every serving path
+wants them; :func:`loss_and_grads` turns the gradient on for its call
+and backpropagates :func:`loss_fn` through every family (the trainer's
+step, ``train/trainer.py``).
 """
 from __future__ import annotations
 
@@ -95,6 +98,28 @@ def loss_fn(cfg: ArchConfig, params: DecoderLM,
 def make_train_forward(cfg: ArchConfig) -> Callable:
     """(params, batch) → (loss, metrics): the forward of the loss."""
     return functools.partial(loss_fn, cfg)
+
+
+def loss_and_grads(cfg: ArchConfig, params: DecoderLM,
+                   batch: dict) -> tuple[torch.Tensor, dict, dict]:
+    """(loss, metrics, {name: gradient}) of :func:`loss_fn`, the
+    gradient by autograd: a zero one where the forward does not reach a
+    parameter, as ``jax.grad`` gives. The parameters take a gradient for
+    the call alone and come back as they were (without one, from
+    :func:`init_params`)."""
+    named = dict(params.named_parameters())
+    was = [p.requires_grad for p in named.values()]
+    params.requires_grad_(True)
+    try:
+        loss, metrics = loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        for p, w in zip(named.values(), was):
+            p.requires_grad_(w)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            dict(zip(named, grads)))
 
 
 def make_prefill(cfg: ArchConfig) -> Callable:

@@ -5,7 +5,9 @@ head.
 
 Counterpart of ``repro.models.transformer``. Modes, as in the reference:
 
-* "train" — full-sequence teacher forcing, no cache kept;
+* "train" — full-sequence teacher forcing, no cache kept; with
+  ``cfg.remat`` each super-block of ``schema.block_pattern``'s layers is
+  rematerialised in the backward (``torch.utils.checkpoint``);
 * "prefill" — the same forward, returning each layer's serving cache;
 * "decode" — one token a call against a statically shaped cache
   (:func:`init_cache`, or a prefill cache padded by
@@ -48,23 +50,28 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers, moe
-from repro_torch.models.schema import (enc_block_specs, layer_kinds,
-                                       param_schema)
+from repro_torch.models.schema import (block_pattern, enc_block_specs,
+                                       layer_kinds, param_schema)
 from repro_torch.models.ssm import mamba_mixer, mlstm_mixer, slstm_mixer
 
 # the fields of a config that describe no weights: the forward may run
 # with a config that differs from the model's in these alone
 RUNTIME_FIELDS = ("use_flash_attention", "compute_dtype", "kv_cache_dtype",
-                  "capacity_factor", "moe_dispatch", "moe_group_size")
+                  "capacity_factor", "moe_dispatch", "moe_group_size",
+                  "remat")
 
 
 def _params(module: nn.Module, specs: dict, dtype: torch.dtype,
             device: torch.device) -> None:
+    """Register ``specs`` as ``module``'s parameters, uninitialised and
+    without a gradient: serving never takes one, and
+    ``model.loss_and_grads`` turns them on for its call."""
     for name, spec in specs.items():
         module.register_parameter(name, nn.Parameter(
             torch.empty(spec.shape, dtype=dtype, device=device),
@@ -283,6 +290,26 @@ class DecoderLM(nn.Module):
                                      pos, **inputs)
         return logits, caches
 
+    def _super_block(self, start: int, period: int, x: torch.Tensor,
+                     positions, cfg: ArchConfig, mrope_pos, cross_src):
+        """The train-mode forward of the ``period`` layers from ``start``
+        (one super-block of the reference's scan): (x, the sum of their
+        MoE losses). With ``cfg.remat`` and grad mode on it runs under
+        ``torch.utils.checkpoint``, so the backward recomputes the
+        super-block's activations from its input, as the reference's
+        ``jax.checkpoint`` of ``super_block``."""
+        def run(x):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for blk in self.blocks[start:start + period]:
+                x, _, a = blk(x, positions, cfg, "train", None, 0,
+                              mrope_pos=mrope_pos, cross_src=cross_src)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint.checkpoint(run, x, use_reentrant=False)
+        return run(x)
+
     def run(self, tokens: torch.Tensor,
             positions: torch.Tensor | None = None,
             cfg: ArchConfig | None = None, mode: str = "prefill",
@@ -331,13 +358,20 @@ class DecoderLM(nn.Module):
                 .expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
-        for i, blk in enumerate(self.blocks):
-            x, c, a = blk(x, positions, cfg, mode,
-                          caches[i] if mode == "decode" else None, pos,
-                          mrope_pos=mrope_positions, cross_src=cross_src)
-            new_caches.append(c)
-            if a is not None:
+        if mode == "train":
+            period = len(block_pattern(cfg))
+            for s in range(0, len(self.blocks), period):
+                x, a = self._super_block(s, period, x, positions, cfg,
+                                         mrope_positions, cross_src)
                 aux = aux + a
+        else:
+            for i, blk in enumerate(self.blocks):
+                x, c, a = blk(x, positions, cfg, mode,
+                              caches[i] if mode == "decode" else None, pos,
+                              mrope_pos=mrope_positions, cross_src=cross_src)
+                new_caches.append(c)
+                if a is not None:
+                    aux = aux + a
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         w = self.embed.T if cfg.tie_embeddings else self.lm_head
         logits = torch.einsum("bsd,dv->bsv", x, w.to(dt))

@@ -30,7 +30,13 @@ MODULES = [
     "repro_torch.core.analysis.hitrate", "repro_torch.kernels.quant",
     "repro_torch.kernels.knn.lsh", "repro_torch.kernels.knn.ops",
     "repro_torch.kernels.knn.ref", "repro_torch.kernels.knn.gains",
-    "repro_torch.launch.mesh", "repro_torch.launch.sharding"]
+    "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+    "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.schedule", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.ckpt", "repro_torch.train",
+    "repro_torch.train.trainer", "repro_torch.ft",
+    "repro_torch.ft.straggler", "repro_torch.launch.train"]
 
 _PROBE = """
 import sys
