@@ -180,6 +180,22 @@ Phases, one line each before the last:
    no swap), a drift to uniform demand (``set_streams``) triggering a
    solve that swaps in; the surrogate's time a call; launches counted
    over the phase.
+   Then ``mesh``: the mesh layer (item 14d) on the same weights, no new
+   model: (a) the train-mode loss under the production train policy
+   (heads, the KV heads repeated 8 → 16) against NO_SHARD's, f32, B 2,
+   S 512, within 1e-5 relative; (b) a flash prefill under the
+   production prefill policy (B 2, S 2048), kernel E at H 32 / KH 16,
+   one launch a layer, counted, E held against ``flash_ref`` and
+   ``flash_blocked`` at that shape and timed beside SDPA, the logits
+   within bf16's own move of NO_SHARD's; (c) 8 serve steps under the
+   decode policy bitwise NO_SHARD's; (d) the dry run's argument bytes of
+   the ``train`` phase's cell (B 4, S 512, f32 moments, 1 × 1 mesh)
+   equal to the state the trainer builds on the card, part for part,
+   and the dry run's seconds by pass; (e) ``compressed_crosspod_mean`` on
+   a 1-rank NCCL group bitwise dequantize ∘ quantize; (f) granite's
+   smoke weights checkpointed and re-meshed onto (4, 2), (2, 4) and
+   (8, 1): every leaf reassembled bitwise, the loss bitwise the saved
+   model's.
    Then ``generate_wide``: phi3-medium-14b at full width and depth,
    deepseek-coder-33b and deepseek-67b at full width cut to 8 layers
    (B 2, a 1,024-token prompt): a counted bf16 ``greedy_generate`` with
@@ -239,7 +255,9 @@ Phases, one line each before the last:
    the ``scenario`` runs, and every entry its launches in the ``gate``
    run; E's its launches in the ``greedy_generate`` calls of
    ``generate`` and ``generate_wide`` (``launches_generate``) and in
-   the ``families`` phase's counted runs (``launches_families``); A's also
+   the ``families`` phase's counted runs (``launches_families``), and in
+   the ``mesh`` phase's policy prefill (``launches_mesh``, with E's hold
+   at that shape, ``mesh_hold``); A's also
    its launches over the ``compress`` runs; A's and C's their launches
    in the sharded phases (``launches_sharded``), and A's the hold of its
    shard-local entry (``shard_local_hold``). Beside the
@@ -2658,7 +2676,7 @@ class moe_watch:
 
         def watched(x, router, we_gate, we_up, we_down, topk,
                     capacity_factor=1.25, group_size=512,
-                    dispatch="einsum"):
+                    dispatch="einsum", **kw):
             B, S, D = x.shape
             E = router.shape[1]
             G, Tg = moe._groups(B * S, group_size)
@@ -2670,7 +2688,7 @@ class moe_watch:
                               slots=B * S * topk,
                               gaps=moe.router_gaps(x, router, topk)))
             return self.fn(x, router, we_gate, we_up, we_down, topk,
-                           capacity_factor, group_size, dispatch)
+                           capacity_factor, group_size, dispatch, **kw)
         moe.moe_mlp = watched
         return calls
 
@@ -4312,6 +4330,284 @@ def phase_gate(torch, params):
     return counts
 
 
+MESH_B, MESH_S = 2, 512            # (a): the train policy's loss
+MESH_DECODE_STEPS = 8              # (c)
+MESH_LOSS_RTOL = 1e-5   # (a): f32, the repeated heads' grouped products
+
+
+def mesh_loss_hold(torch, cfg, params) -> dict:
+    """(a) The train-mode loss under the production train policy (heads
+    tensor parallelism, the KV heads repeated up to the model axis's 16)
+    against NO_SHARD's, f32 compute, B 2, S 512: the same attention with
+    the grouped products in other shapes, so within ``MESH_LOSS_RTOL``."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.sharding import MeshShardPolicy
+    from repro_torch.models.model import loss_fn
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    policy = MeshShardPolicy.create(f32, make_production_mesh(), "train")
+    rng = np.random.default_rng(5)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (MESH_B, MESH_S)),
+                                device="cuda") for k in ("tokens", "labels")}
+    with torch.no_grad():
+        loss, _ = loss_fn(f32, params, batch, policy)
+        plain, _ = loss_fn(f32, params, batch)
+    rel = abs(float(loss) - float(plain)) / abs(float(plain))
+    return dict(policy=policy.attn_strategy, kv_repeat=policy.kv_repeat,
+                loss=float(loss), no_shard_loss=float(plain), rel_err=rel,
+                tol=MESH_LOSS_RTOL, bitwise=bool(torch.equal(loss, plain)),
+                ok=policy.kv_repeat == 2 and rel <= MESH_LOSS_RTOL)
+
+
+def mesh_prefill(torch, cfg, params, clock_hz: float) -> dict:
+    """(b) A flash prefill (bf16, B 2, S 2048) under the production
+    prefill policy: kernel E sees H 32 / KH 16 (the KV heads repeated),
+    one launch a layer, counted; E held against ``flash_ref`` and
+    ``flash_blocked`` at that shape (layer 0's Q/K/V) and timed beside
+    SDPA and its bound; the logits against NO_SHARD's flash prefill on
+    the same tokens within what bf16 moves the plain prefill from f32
+    (``prefill``'s rule)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.sharding import MeshShardPolicy
+    from repro_torch.models.model import make_prefill
+    flash = dataclasses.replace(cfg, use_flash_attention=True)
+    policy = MeshShardPolicy.create(flash, make_production_mesh(), "prefill")
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 2048)), device="cuda")
+    with kept_flash_inputs() as kept:
+        reset_launch_counts()
+        got, _ = make_prefill(flash, policy)(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        launches = launch_counts()["flash_attention"]
+    q, k, v = kept[True]
+    hold = hold_kernel_e(torch, q, k, v, clock_hz)
+    del q, k, v, kept
+    base, _ = make_prefill(flash)(params, {"tokens": toks})
+    plain, _ = make_prefill(cfg)(params, {"tokens": toks})
+    f32, _ = make_prefill(dataclasses.replace(cfg, compute_dtype="float32"))(
+        params, {"tokens": toks})
+    diff, top1 = _logit_diff(torch, got, base)
+    noise, _ = _logit_diff(torch, plain, f32)
+    bitwise = bool(torch.equal(got, base))
+    del base, plain, f32
+    return dict(policy=policy.attn_strategy, kv_repeat=policy.kv_repeat,
+                launches=launches, max_abs_logit_diff=diff,
+                top1_agreement=top1, tol=noise, bitwise=bitwise,
+                e_hold=hold,
+                ok=(launches == cfg.n_layers and hold["KH"] == 16
+                    and hold["H"] == 32 and diff <= noise
+                    and bool(torch.isfinite(got.float()).all())))
+
+
+def mesh_decode(torch, cfg, params) -> dict:
+    """(c) ``MESH_DECODE_STEPS`` serve steps (bf16, B 2, a 256-token
+    prompt) under the decode policy ("kv_seq": on one process every
+    constraint is the identity) against NO_SHARD's on a copy of the same
+    padded cache, fed the same tokens: every step's logits bitwise."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.sharding import MeshShardPolicy
+    from repro_torch.models.model import (_pad_caches, make_prefill,
+                                          make_serve_step)
+    policy = MeshShardPolicy.create(cfg, make_production_mesh(), "decode")
+    B, S, n = 2, 256, MESH_DECODE_STEPS
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (B, S + n)), device="cuda")
+    _, caches = make_prefill(cfg)(params, {"tokens": toks[:, :S]})
+    with torch.inference_mode():
+        caches = _pad_caches(cfg, caches, S + n)
+        other = [{k: t.clone() for k, t in c.items()} for c in caches]
+    sharded, plain = make_serve_step(cfg, policy), make_serve_step(cfg)
+    equal = []
+    for t in range(n):
+        tok = toks[:, S + t:S + t + 1]
+        a, caches = sharded(params, tok, caches, S + t)
+        b, other = plain(params, tok, other, S + t)
+        equal.append(bool(torch.equal(a, b)))
+    del caches, other
+    return dict(policy=policy.attn_strategy, kv_repeat=policy.kv_repeat,
+                steps=n, bitwise_steps=sum(equal), ok=all(equal))
+
+
+def mesh_bytes(torch, cfg, params) -> dict:
+    """(d) The dry run of the ``train`` phase's own cell (granite, B 4,
+    S 512, f32 moments, a 1 × 1 mesh): its per-device argument bytes
+    against the bytes of the state the trainer builds on the card (the
+    engine's weights are ``init_params(cfg, 0)``'s, as the trainer's;
+    ``adamw_init``'s moments and step; the first batch as the trainer
+    puts it on the card), part for part; and the dry run's seconds by
+    pass (memory, FLOPs on the meta device; on one device there is no
+    collective to count)."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ShardMesh
+    from repro_torch.launch.specs import ShapeCell
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import _device_batch
+    opt = AdamWConfig(moment_dtype="float32")
+    m = dryrun.measure_cell(cfg, ShapeCell("train_phase", TRAIN_S, TRAIN_B,
+                                           "train"),
+                            ShardMesh(("data", "model"), (1, 1)), opt,
+                            collectives=False)
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+    named = dict(params.named_parameters())
+    state = adamw_init(named, opt)
+    batch = _device_batch(SyntheticLMData(
+        vocab=cfg.vocab, batch=TRAIN_B, seq=TRAIN_S).batch_at(0),
+        torch.device("cuda"))
+    card = dict(params=nbytes(named), opt_state=nbytes(state),
+                batch=nbytes(batch))
+    card["argument_size_in_bytes"] = sum(card.values())
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(dryrun=m["memory_analysis"], card=card,
+                flops_counted=m["flops_counted"],
+                dryrun_seconds=m["seconds"],
+                ok=m["memory_analysis"] == card
+                and m["flops_counted"] is not None)
+
+
+def mesh_crosspod(torch, params) -> dict:
+    """(e) ``compressed_crosspod_mean`` on a 1-rank NCCL group (a (1, 1)
+    device mesh on ("pod", "data"), 60 s timeout) over three of the
+    weights' leaves taken as gradients (the embedding, layer 0's wq and
+    w_down): bitwise dequantize ∘ quantize of each (the mean over one rank
+    and one pod is the identity)."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.ft import (compressed_crosspod_mean, dequantize_int8,
+                                quantize_int8)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("pod", "data"))
+        grads = {"embed": params.embed, "blocks": {
+            "wq": params.blocks[0].wq, "w_down": params.blocks[0].w_down}}
+        out = compressed_crosspod_mean(grads, mesh)
+        want = {k: dequantize_int8(*quantize_int8(v)) for k, v in
+                (("embed", grads["embed"]), ("wq", grads["blocks"]["wq"]),
+                 ("w_down", grads["blocks"]["w_down"]))}
+        got = {"embed": out["embed"], **out["blocks"]}
+        torch.cuda.synchronize()
+        equal = {k: bool(torch.equal(got[k], want[k])) for k in want}
+    finally:
+        dist.destroy_process_group()
+    return dict(backend="nccl", world_size=1, leaves=equal,
+                seconds=time.perf_counter() - t, ok=all(equal.values()))
+
+
+def mesh_remesh(torch) -> dict:
+    """(f) granite's smoke weights (seed 0) checkpointed, then restored
+    onto the (4, 2), (2, 4) and (8, 1) meshes (``plan_mesh``,
+    ``reshard_plan``), one ``restore_for_mesh`` a device: every leaf's
+    blocks reassemble it bitwise, and the train-mode loss of the
+    reassembled weights equals the saved model's bitwise."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import restore_for_mesh, save
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.ft import plan_mesh, reshard_plan
+    from repro_torch.launch.sharding import shard_slices
+    from repro_torch.models import convert
+    from repro_torch.models.model import init_params, loss_fn
+    cfg = get_smoke_config("granite-3-2b")
+    model = init_params(cfg, 0)
+    tree = convert.to_jax_params(cfg, model)
+    rng = np.random.default_rng(8)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (8, 16)),
+                                device="cuda") for k in ("tokens", "labels")}
+    with torch.no_grad():
+        want, _ = loss_fn(cfg, model, batch)
+
+    def leaves(t, prefix=()):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + (k,))
+            else:
+                yield prefix + (k,), v
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_remesh_")
+    rows = []
+    try:
+        save(ckpt, 1, {"params": tree})
+        for shape in ((4, 2), (2, 4), (8, 1)):
+            mesh = plan_mesh(shape[0] * shape[1], model_parallelism=shape[1])
+            specs = reshard_plan(cfg, mesh)
+            full = {p: torch.zeros(v.shape, dtype=getattr(
+                torch, str(v.dtype)), device="cuda")
+                for p, v in leaves(tree)}
+            spec_of = dict(leaves(specs))
+            for d in range(shape[0]):
+                for m in range(shape[1]):
+                    coords = {"data": d, "model": m}
+                    _, state = restore_for_mesh(ckpt, {"params": specs},
+                                                mesh, coords)
+                    for p, block in leaves(state["params"]):
+                        full[p][shard_slices(tuple(full[p].shape),
+                                             spec_of[p], mesh,
+                                             coords)] = block
+            same = all(torch.equal(full[p], torch.as_tensor(v).cuda())
+                       for p, v in leaves(tree))
+            rebuilt = {}
+            for p, v in full.items():
+                node = rebuilt
+                for key in p[:-1]:
+                    node = node.setdefault(key, {})
+                node[p[-1]] = v
+            with torch.no_grad():
+                loss, _ = loss_fn(cfg, convert.from_jax_params(
+                    cfg, rebuilt, device="cuda"), batch)
+            rows.append(dict(mesh=list(shape), leaves_bitwise=same,
+                             loss=float(loss),
+                             loss_bitwise=bool(torch.equal(loss, want))))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(saved_loss=float(want), meshes=rows,
+                ok=all(r["leaves_bitwise"] and r["loss_bitwise"]
+                       for r in rows))
+
+
+def phase_mesh(torch, params, clock_hz: float) -> dict:
+    """The mesh layer (item 14d) on the engine's granite-3-2b weights (full
+    width, no new model): (a) :func:`mesh_loss_hold`, (b)
+    :func:`mesh_prefill` (kernel E at H 32 / KH 16), (c)
+    :func:`mesh_decode`, (d) :func:`mesh_bytes`, (e)
+    :func:`mesh_crosspod`, (f) :func:`mesh_remesh`. Returns E's launches
+    and hold for the kernels line."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("granite-3-2b")
+    t0 = time.perf_counter()
+    parts = {}
+    for name, fn in (("loss", lambda: mesh_loss_hold(torch, cfg, params)),
+                     ("prefill", lambda: mesh_prefill(torch, cfg, params,
+                                                      clock_hz)),
+                     ("decode", lambda: mesh_decode(torch, cfg, params)),
+                     ("bytes", lambda: mesh_bytes(torch, cfg, params)),
+                     ("crosspod", lambda: mesh_crosspod(torch, params)),
+                     ("remesh", lambda: mesh_remesh(torch))):
+        t = time.perf_counter()
+        parts[name] = fn()
+        parts[name]["seconds"] = time.perf_counter() - t
+    log("mesh", **parts, phase_s=time.perf_counter() - t0)
+    checks = {k: v["ok"] for k, v in parts.items()}
+    if not all(checks.values()):
+        raise RuntimeError(f"mesh failed its checks: {checks}")
+    return dict(flash_attention=parts["prefill"]["launches"],
+                e_hold=parts["prefill"]["e_hold"])
+
+
 def phase_launch():
     """The command-line entry point, as a user runs it, in a subprocess
     of its own (its kernel launches are its own, counted nowhere): the
@@ -4440,6 +4736,7 @@ def main() -> int:
     sharded_control = phase_sharded_control(torch, cat, dem)
     cand_ca = phase_hitrate(torch)
     gate_counts = phase_gate(torch, params)
+    mesh = phase_mesh(torch, params, clock_hz)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4501,6 +4798,12 @@ def main() -> int:
             # the other families' counted runs (item 14b)
             kernels[-1]["launches_families"] = \
                 family_counts["flash_attention"]
+            # the mesh phase's prefill under the production policy: its
+            # launches and E held at H 32 / KH 16 (item 14d)
+            kernels[-1]["launches_mesh"] = mesh["flash_attention"]
+            kernels[-1]["mesh_hold"] = {
+                k: mesh["e_hold"][k] for k in ("B", "S", "H", "KH", "Dh")
+                + E_FIELDS + ("max_abs_err", "share_of_bound")}
         if r["name"] in gate_counts:             # the gated stream engine
             kernels[-1]["launches_gate"] = gate_counts[r["name"]]
         if r["name"] in shapes:        # A, B: K 448, 65,536; C: O 10⁵, 2e4

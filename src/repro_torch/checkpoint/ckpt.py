@@ -5,7 +5,9 @@ Counterpart of ``repro.checkpoint.ckpt``. Layout: ``<dir>/step_<N>/``
 tree under its '/'-joined path, and ``manifest.json`` ({"step", "keys"}).
 Writes go to a ``.tmp`` directory renamed into place (atomic on POSIX),
 so a crash mid-save never corrupts the newest checkpoint, and the
-oldest are pruned to ``keep``.
+oldest are pruned to ``keep``. The format is mesh-agnostic (whole
+arrays), so a checkpoint written on one mesh restores onto another
+(:func:`restore_for_mesh`, elastic re-meshing).
 
 Trees are nested dicts whose leaves are numpy arrays or tensors;
 tensors are written from the host, bf16 as the two-byte ``|V2`` records
@@ -14,7 +16,9 @@ reference's tree (``models/convert.py``: parameters stacked on the
 super-block axis), so a checkpoint of either package restores in the
 other. :func:`restore` returns numpy arrays, as the reference's;
 :func:`restore_for_device` puts every leaf on one device (what the
-reference's ``restore_for_mesh(dir, None)`` does on one host).
+reference's ``restore_for_mesh(dir, None)`` does on one host);
+:func:`restore_for_mesh` gives one device's blocks of every leaf under
+a spec tree (launch/sharding.py).
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.launch.mesh import ShardMesh
+from repro_torch.launch.sharding import local_shard
 from repro_torch.models.convert import as_tensor, host_array
 
 
@@ -104,4 +110,26 @@ def restore_for_device(ckpt_dir: str,
     dev = resolve_device(device)
     step, tree = restore(ckpt_dir, step)
     flat = {k: as_tensor(v).to(dev) for k, v in _flatten(tree).items()}
+    return step, _unflatten(flat)
+
+
+def restore_for_mesh(ckpt_dir: str, spec_tree: dict | None,
+                     mesh: ShardMesh, coords: dict,
+                     device: str | torch.device | None = None,
+                     step: int | None = None) -> tuple[int, dict]:
+    """Restore for a (possibly different) mesh — elastic scaling: each
+    leaf as the block that the device at ``coords`` (mesh axis → index)
+    holds under its spec in ``spec_tree`` (a leaf the tree does not name
+    comes whole, as the reference's leaves without a sharding), a tensor
+    on ``device`` (CUDA unless named). Only the block is copied to the
+    device."""
+    dev = resolve_device(device)
+    step, tree = restore(ckpt_dir, step)
+    specs = _flatten(spec_tree) if spec_tree is not None else {}
+    flat = {}
+    for k, v in _flatten(tree).items():
+        t = as_tensor(v)
+        if k in specs:
+            t = local_shard(t, specs[k], mesh, coords)
+        flat[k] = t.to(dev, copy=True)
     return step, _unflatten(flat)

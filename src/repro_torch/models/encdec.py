@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers
+from repro_torch.models.sharding_api import NO_SHARD, ShardPolicy
 
 
 def sinusoidal_positions(S: int, d: int, dtype: torch.dtype,
@@ -28,8 +29,8 @@ def sinusoidal_positions(S: int, d: int, dtype: torch.dtype,
     return pe[:, :d].to(dtype)
 
 
-def encode(cfg: ArchConfig, params, audio_embeds: torch.Tensor
-           ) -> torch.Tensor:
+def encode(cfg: ArchConfig, params, audio_embeds: torch.Tensor,
+           shard: ShardPolicy = NO_SHARD) -> torch.Tensor:
     """audio_embeds: (B, S_enc, 128) stub frame features → (B, S_enc, D),
     in the compute dtype. With ``cfg.use_flash_attention`` every encoder
     layer's attention is kernel E, non-causal."""
@@ -38,21 +39,22 @@ def encode(cfg: ArchConfig, params, audio_embeds: torch.Tensor
                      params.audio_proj.to(dt))
     B, S = x.shape[:2]
     x = x + sinusoidal_positions(S, cfg.d_model, dt, x.device)[None]
+    x = shard(x, ("batch", "seq", "embed"))
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     for blk in params.enc_blocks:
-        x = blk(x, positions, cfg)
+        x = blk(x, positions, cfg, shard)
     return layers.rms_norm(x, params.enc_final_norm, cfg.norm_eps)
 
 
 def encdec_forward(cfg: ArchConfig, params, batch: dict, *,
                    mode: str = "train", caches: list | None = None,
-                   pos: int = 0):
+                   pos: int = 0, shard: ShardPolicy = NO_SHARD):
     """The whole encoder-decoder forward: (logits, caches, aux). In
     "decode" the encoder output already sits in the cross-attention
     cache, so the encoder is skipped."""
     cfg = params.check_cfg(cfg)
     cross_src = None
     if mode != "decode":
-        cross_src = encode(cfg, params, batch["audio_embeds"])
+        cross_src = encode(cfg, params, batch["audio_embeds"], shard)
     return params.run(batch["tokens"], batch.get("positions"), cfg, mode,
-                      caches, pos, cross_src=cross_src)
+                      caches, pos, cross_src=cross_src, shard=shard)

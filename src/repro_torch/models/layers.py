@@ -63,7 +63,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple,
     inv = rope_freqs(dh, theta, x.device)                # (Dh/2,)
     sec_ids = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))       # (Dh/2,)
+        torch.as_tensor(sections, device=x.device),
+        output_size=dh // 2)                              # (Dh/2,)
     pos_per_freq = positions.float()[sec_ids]            # (Dh/2, B, S)
     ang = pos_per_freq.movedim(0, -1) * inv              # (B, S, Dh/2)
     cos = torch.cos(ang)[:, :, None, :]

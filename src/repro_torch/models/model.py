@@ -30,6 +30,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, transformer
 from repro_torch.models.schema import layer_kinds, param_schema
+from repro_torch.models.sharding_api import NO_SHARD, ShardPolicy
 from repro_torch.models.transformer import DecoderLM, _kv_quant
 
 AUX_LOSS_WEIGHT = 0.01
@@ -60,31 +61,37 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     return model
 
 
-def _forward(cfg: ArchConfig, params: DecoderLM, batch: dict, *,
-             mode: str, caches: list | None = None, pos: int = 0):
+def forward(cfg: ArchConfig, params: DecoderLM, batch: dict, *,
+            mode: str = "train", caches: list | None = None, pos: int = 0,
+            shard: ShardPolicy = NO_SHARD):
     """(logits, caches, aux) of ``batch``: the encoder-decoder through
-    ``encdec.encdec_forward``, every other family through the stack."""
+    ``encdec.encdec_forward``, every other family through the stack,
+    under the shard policy ``shard``."""
     if cfg.is_encdec:
         return encdec.encdec_forward(cfg, params, batch, mode=mode,
-                                     caches=caches, pos=pos)
+                                     caches=caches, pos=pos, shard=shard)
     return params.run(batch["tokens"], batch.get("positions"), cfg, mode,
                       caches, pos, image_embeds=batch.get("image_embeds"),
-                      mrope_positions=batch.get("mrope_positions"))
+                      mrope_positions=batch.get("mrope_positions"),
+                      shard=shard)
 
 
-def loss_fn(cfg: ArchConfig, params: DecoderLM,
-            batch: dict) -> tuple[torch.Tensor, dict]:
+def loss_fn(cfg: ArchConfig, params: DecoderLM, batch: dict,
+            shard: ShardPolicy = NO_SHARD) -> tuple[torch.Tensor, dict]:
     """Token cross-entropy (+ MoE aux loss + z-loss). ``batch`` needs
     ``tokens`` (B, S) and ``labels`` (B, S_lab); the last S_lab positions
     are scored. An optional ``loss_mask`` (B, S_lab) zeroes out positions;
     the denominator is its sum, floored at 1. Returns (total, {"ce",
     "aux", "zloss"}), f32 scalars; ``aux`` is the MoE load-balance loss
     summed over the layers (0 without MoE)."""
-    logits, _, aux = _forward(cfg, params, batch, mode="train")
+    logits, _, aux = forward(cfg, params, batch, mode="train", shard=shard)
     labels = batch["labels"]
     logits_f = logits[:, -labels.shape[1]:, :].float()
     logz = torch.logsumexp(logits_f, dim=-1)
-    ll = torch.gather(logits_f, -1, labels[..., None].long())[..., 0]
+    # the gather on (tokens, vocab) rows: a vocab-sharded DTensor takes
+    # the 2-D gather only
+    ll = torch.gather(logits_f.reshape(-1, logits_f.shape[-1]), 1,
+                      labels.reshape(-1, 1).long()).reshape(labels.shape)
     nll = logz - ll
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
@@ -95,13 +102,15 @@ def loss_fn(cfg: ArchConfig, params: DecoderLM,
     return total, {"ce": ce, "aux": aux, "zloss": zloss}
 
 
-def make_train_forward(cfg: ArchConfig) -> Callable:
+def make_train_forward(cfg: ArchConfig, shard: ShardPolicy = NO_SHARD
+                       ) -> Callable:
     """(params, batch) → (loss, metrics): the forward of the loss."""
-    return functools.partial(loss_fn, cfg)
+    return functools.partial(loss_fn, cfg, shard=shard)
 
 
-def loss_and_grads(cfg: ArchConfig, params: DecoderLM,
-                   batch: dict) -> tuple[torch.Tensor, dict, dict]:
+def loss_and_grads(cfg: ArchConfig, params: DecoderLM, batch: dict,
+                   shard: ShardPolicy = NO_SHARD
+                   ) -> tuple[torch.Tensor, dict, dict]:
     """(loss, metrics, {name: gradient}) of :func:`loss_fn`, the
     gradient by autograd: a zero one where the forward does not reach a
     parameter, as ``jax.grad`` gives. The parameters take a gradient for
@@ -111,7 +120,7 @@ def loss_and_grads(cfg: ArchConfig, params: DecoderLM,
     was = [p.requires_grad for p in named.values()]
     params.requires_grad_(True)
     try:
-        loss, metrics = loss_fn(cfg, params, batch)
+        loss, metrics = loss_fn(cfg, params, batch, shard)
         grads = torch.autograd.grad(loss, list(named.values()),
                                     allow_unused=True,
                                     materialize_grads=True)
@@ -122,19 +131,22 @@ def loss_and_grads(cfg: ArchConfig, params: DecoderLM,
             dict(zip(named, grads)))
 
 
-def make_prefill(cfg: ArchConfig) -> Callable:
+def make_prefill(cfg: ArchConfig, shard: ShardPolicy = NO_SHARD
+                 ) -> Callable:
     """(params, batch) → (logits, caches): the full-sequence forward the
     engine runs on its misses, with ``cfg`` — not the config ``params``
     was built with — deciding the attention (``use_flash_attention``),
     as in the reference. ``params`` is the model."""
     def prefill(params: DecoderLM, batch: dict):
         with torch.inference_mode():
-            logits, caches, _ = _forward(cfg, params, batch, mode="prefill")
+            logits, caches, _ = forward(cfg, params, batch, mode="prefill",
+                                        shard=shard)
         return logits, caches
     return prefill
 
 
-def make_serve_step(cfg: ArchConfig) -> Callable:
+def make_serve_step(cfg: ArchConfig, shard: ShardPolicy = NO_SHARD
+                    ) -> Callable:
     """One decode step: (params, tokens (B, 1), caches, pos) → (logits
     (B, 1, V), caches). ``pos`` is the current sequence length (the new
     token's position). The step writes the new K/V into the caller's
@@ -144,19 +156,25 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
     encoder-decoder reads its encoder output from the cache."""
     def serve_step(params: DecoderLM, tokens: torch.Tensor, caches: list,
                    pos: int):
-        B = tokens.shape[0]
-        batch = {"tokens": tokens,
-                 "positions": torch.full((B, 1), pos, dtype=torch.long,
-                                         device=tokens.device)}
-        if cfg.mrope:
-            batch["mrope_positions"] = torch.full(
-                (3, B, 1), pos, dtype=torch.long, device=tokens.device)
         with torch.inference_mode():
-            logits, caches_out, _ = _forward(cfg, params, batch,
-                                             mode="decode", caches=caches,
-                                             pos=pos)
+            logits, caches_out, _ = forward(
+                cfg, params, serve_batch(cfg, tokens, pos), mode="decode",
+                caches=caches, pos=pos, shard=shard)
         return logits, caches_out
     return serve_step
+
+
+def serve_batch(cfg: ArchConfig, tokens: torch.Tensor, pos: int) -> dict:
+    """A decode step's batch: ``tokens`` (B, 1) at position ``pos`` (on
+    all three M-RoPE streams where the config has them)."""
+    B = tokens.shape[0]
+    batch = {"tokens": tokens,
+             "positions": torch.full((B, 1), pos, dtype=torch.long,
+                                     device=tokens.device)}
+    if cfg.mrope:
+        batch["mrope_positions"] = torch.full(
+            (3, B, 1), pos, dtype=torch.long, device=tokens.device)
+    return batch
 
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
@@ -195,7 +213,8 @@ def _pad_caches(cfg: ArchConfig, caches: list, max_len: int) -> list:
 
 def greedy_generate(cfg: ArchConfig, params: DecoderLM,
                     prompt: torch.Tensor, n_steps: int,
-                    max_len: int | None = None) -> torch.Tensor:
+                    max_len: int | None = None,
+                    shard: ShardPolicy = NO_SHARD) -> torch.Tensor:
     """Greedy argmax sampler: the prefill of ``prompt`` (B, S), its cache
     padded to ``max_len`` (default S + n_steps), then ``n_steps`` − 1
     serve steps. Returns the (B, n_steps) generated tokens (int64, on
@@ -208,12 +227,12 @@ def greedy_generate(cfg: ArchConfig, params: DecoderLM,
     max_len = max_len or (S + n_steps)
     if cfg.is_encdec:
         raise NotImplementedError("use the serving engine for enc-dec")
-    step = make_serve_step(cfg)
+    step = make_serve_step(cfg, shard)
     batch = {"tokens": prompt}
     if cfg.mrope:
         batch["mrope_positions"] = torch.arange(
             S, device=prompt.device)[None, None, :].expand(3, B, S)
-    logits, caches = make_prefill(cfg)(params, batch)
+    logits, caches = make_prefill(cfg, shard)(params, batch)
     with torch.inference_mode():
         caches = _pad_caches(cfg, caches, max_len)
     tok = logits[:, -1:, :].argmax(dim=-1)

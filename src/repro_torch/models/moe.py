@@ -23,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.sharding_api import NO_SHARD, ShardPolicy
+
 
 def _capacity(tg: int, k: int, e: int, cf: float) -> int:
     if cf <= 0:                        # no-drop mode (decode): worst case
@@ -92,7 +94,7 @@ def _experts(xe: torch.Tensor, we_gate, we_up, we_down,
 
 
 def _moe_einsum(x, router, we_gate, we_up, we_down, topk, capacity_factor,
-                group_size):
+                group_size, shard):
     """Grouped one-hot dispatch (the GShard baseline)."""
     B, S, D = x.shape
     E = router.shape[1]
@@ -119,14 +121,15 @@ def _moe_einsum(x, router, we_gate, we_up, we_down, topk, capacity_factor,
             (gate_vals[..., k] * keep[..., k])[..., None, None]
 
     xe = torch.einsum("gtec,gtd->egcd", dispatch, xt)       # (E, G, Cg, D)
-    ye = _experts(xe, we_gate, we_up, we_down, "egcd,edf->egcf",
-                  "egcf,efd->egcd")
+    axes = ("experts", "moe_group", None, "embed")
+    ye = shard(_experts(shard(xe, axes), we_gate, we_up, we_down,
+                        "egcd,edf->egcf", "egcf,efd->egcd"), axes)
     y = torch.einsum("gtec,egcd->gtd", combine.to(x.dtype), ye)
     return y.reshape(B, S, D), aux
 
 
 def _moe_gather(x, router, we_gate, we_up, we_down, topk, capacity_factor,
-                group_size):
+                group_size, shard):
     """Grouped gather/scatter dispatch: the same capacity and drops as
     the einsum path, with slot gathers in place of the one-hot
     matmuls."""
@@ -151,8 +154,10 @@ def _moe_gather(x, router, we_gate, we_up, we_down, topk, capacity_factor,
     token_of_slot = token_of_slot[:, :E * Cg]
 
     xe = torch.gather(xt, 1, token_of_slot[..., None].expand(-1, -1, D))
-    ye = _experts(xe.reshape(G, E, Cg, D), we_gate, we_up, we_down,
-                  "gecd,edf->gecf", "gecf,efd->gecd")
+    axes = ("moe_group", "experts", None, "embed")
+    ye = shard(_experts(shard(xe.reshape(G, E, Cg, D), axes), we_gate,
+                        we_up, we_down, "gecd,edf->gecf", "gecf,efd->gecd"),
+               axes)
     ye_flat = ye.reshape(G, E * Cg, D)
     idx = slot.reshape(G, -1).clamp_max(E * Cg - 1)
     picked = torch.gather(ye_flat, 1, idx[..., None].expand(-1, -1, D)) \
@@ -165,10 +170,13 @@ def _moe_gather(x, router, we_gate, we_up, we_down, topk, capacity_factor,
 def moe_mlp(x: torch.Tensor, router: torch.Tensor, we_gate: torch.Tensor,
             we_up: torch.Tensor, we_down: torch.Tensor, topk: int,
             capacity_factor: float = 1.25, group_size: int = 512,
-            dispatch: str = "einsum") -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) → (y, aux_loss). Expert weights: (E, D, F)/(E, F, D)."""
+            dispatch: str = "einsum", shard: ShardPolicy = NO_SHARD
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) → (y, aux_loss). Expert weights: (E, D, F)/(E, F, D).
+    ``shard`` constrains the dispatched tokens and the experts' outputs
+    to the expert and group axes."""
     if dispatch not in ("einsum", "gather"):
         raise ValueError(f"unknown MoE dispatch {dispatch!r}")
     fn = _moe_gather if dispatch == "gather" else _moe_einsum
     return fn(x, router, we_gate, we_up, we_down, topk, capacity_factor,
-              group_size)
+              group_size, shard)

@@ -1,12 +1,14 @@
 """Declarative parameter schema of every architecture.
 
-Counterpart of ``repro.models.schema``: the same names, shapes and
-initializer scales, so a parameter tree of the JAX reference maps one to
-one onto the port's modules (models/convert.py). The reference stacks
-the parameters of each block of its super-block pattern on a leading
-scanned ``layers`` axis; the port keeps one module per layer: layer
-``l = s·period + bi`` is super-block ``s``'s block ``bi``
-(:func:`layer_kinds`).
+Counterpart of ``repro.models.schema``: the same names, shapes, logical
+sharding axes and initializer scales, so a parameter tree of the JAX
+reference maps one to one onto the port's modules (models/convert.py).
+The reference stacks the parameters of each block of its super-block
+pattern on a leading scanned ``layers`` axis; the port keeps one module
+per layer: layer ``l = s·period + bi`` is super-block ``s``'s block
+``bi`` (:func:`layer_kinds`). :func:`stacked_schema` gives the
+reference's stacked tree, the layout of checkpoints and of the mesh
+policy's spec trees (launch/sharding.py).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.configs.base import ArchConfig
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple
+    axes: tuple                      # logical axis names, len == len(shape)
     init: str = "normal"             # normal | zeros | ones | mamba_a | mamba_dt
     scale: float = 0.02
 
@@ -52,49 +55,51 @@ def attn_specs(cfg: ArchConfig, cross: bool = False) -> dict:
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pfx = "x" if cross else ""
     out = {
-        f"{pfx}attn_norm": ParamSpec((d,), "ones"),
-        f"{pfx}wq": ParamSpec((d, h, dh)),
-        f"{pfx}wk": ParamSpec((d, kh, dh)),
-        f"{pfx}wv": ParamSpec((d, kh, dh)),
-        f"{pfx}wo": ParamSpec((h, dh, d)),
+        f"{pfx}attn_norm": ParamSpec((d,), ("embed",), "ones"),
+        f"{pfx}wq": ParamSpec((d, h, dh), ("embed", "heads", "head_dim")),
+        f"{pfx}wk": ParamSpec((d, kh, dh),
+                              ("embed", "kv_heads", "head_dim")),
+        f"{pfx}wv": ParamSpec((d, kh, dh),
+                              ("embed", "kv_heads", "head_dim")),
+        f"{pfx}wo": ParamSpec((h, dh, d), ("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias and not cross:
-        out["bq"] = ParamSpec((h, dh), "zeros")
-        out["bk"] = ParamSpec((kh, dh), "zeros")
-        out["bv"] = ParamSpec((kh, dh), "zeros")
+        out["bq"] = ParamSpec((h, dh), ("heads", "head_dim"), "zeros")
+        out["bk"] = ParamSpec((kh, dh), ("kv_heads", "head_dim"), "zeros")
+        out["bv"] = ParamSpec((kh, dh), ("kv_heads", "head_dim"), "zeros")
     return out
 
 
 def mlp_specs(cfg: ArchConfig, ff: int) -> dict:
     d = cfg.d_model
     return {
-        "mlp_norm": ParamSpec((d,), "ones"),
-        "w_gate": ParamSpec((d, ff)),
-        "w_up": ParamSpec((d, ff)),
-        "w_down": ParamSpec((ff, d)),
+        "mlp_norm": ParamSpec((d,), ("embed",), "ones"),
+        "w_gate": ParamSpec((d, ff), ("embed", "ff")),
+        "w_up": ParamSpec((d, ff), ("embed", "ff")),
+        "w_down": ParamSpec((ff, d), ("ff", "embed")),
     }
 
 
 def gelu_mlp_specs(cfg: ArchConfig, ff: int) -> dict:
     d = cfg.d_model
     return {
-        "mlp_norm": ParamSpec((d,), "ones"),
-        "mlp_norm_b": ParamSpec((d,), "zeros"),
-        "w_up": ParamSpec((d, ff)),
-        "b_up": ParamSpec((ff,), "zeros"),
-        "w_down": ParamSpec((ff, d)),
-        "b_down": ParamSpec((d,), "zeros"),
+        "mlp_norm": ParamSpec((d,), ("embed",), "ones"),
+        "mlp_norm_b": ParamSpec((d,), ("embed",), "zeros"),
+        "w_up": ParamSpec((d, ff), ("embed", "ff")),
+        "b_up": ParamSpec((ff,), ("ff",), "zeros"),
+        "w_down": ParamSpec((ff, d), ("ff", "embed")),
+        "b_down": ParamSpec((d,), ("embed",), "zeros"),
     }
 
 
 def moe_specs(cfg: ArchConfig) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_experts
     return {
-        "moe_norm": ParamSpec((d,), "ones"),
-        "router": ParamSpec((d, e)),
-        "we_gate": ParamSpec((e, d, f)),
-        "we_up": ParamSpec((e, d, f)),
-        "we_down": ParamSpec((e, f, d)),
+        "moe_norm": ParamSpec((d,), ("embed",), "ones"),
+        "router": ParamSpec((d, e), ("embed", None)),
+        "we_gate": ParamSpec((e, d, f), ("experts", "embed", "ff")),
+        "we_up": ParamSpec((e, d, f), ("experts", "embed", "ff")),
+        "we_down": ParamSpec((e, f, d), ("experts", "ff", "embed")),
     }
 
 
@@ -102,16 +107,16 @@ def mamba_specs(cfg: ArchConfig) -> dict:
     d, di = cfg.d_model, cfg.d_inner
     n, dtr, cw = cfg.ssm_state, cfg.ssm_dt_rank, cfg.ssm_conv
     return {
-        "m_norm": ParamSpec((d,), "ones"),
-        "in_proj": ParamSpec((d, 2 * di)),
-        "conv_w": ParamSpec((cw, di)),
-        "conv_b": ParamSpec((di,), "zeros"),
-        "x_proj": ParamSpec((di, dtr + 2 * n)),
-        "dt_w": ParamSpec((dtr, di)),
-        "dt_b": ParamSpec((di,), "mamba_dt"),
-        "A_log": ParamSpec((di, n), "mamba_a"),
-        "Dskip": ParamSpec((di,), "ones"),
-        "out_proj": ParamSpec((di, d)),
+        "m_norm": ParamSpec((d,), ("embed",), "ones"),
+        "in_proj": ParamSpec((d, 2 * di), ("embed", "ff")),
+        "conv_w": ParamSpec((cw, di), (None, "ff")),
+        "conv_b": ParamSpec((di,), ("ff",), "zeros"),
+        "x_proj": ParamSpec((di, dtr + 2 * n), ("ff", None)),
+        "dt_w": ParamSpec((dtr, di), (None, "ff")),
+        "dt_b": ParamSpec((di,), ("ff",), "mamba_dt"),
+        "A_log": ParamSpec((di, n), ("ff", None), "mamba_a"),
+        "Dskip": ParamSpec((di,), ("ff",), "ones"),
+        "out_proj": ParamSpec((di, d), ("ff", "embed")),
     }
 
 
@@ -121,13 +126,13 @@ def mlstm_specs(cfg: ArchConfig) -> dict:
     di = cfg.ssm_expand * d
     dh = di // nh
     return {
-        "m_norm": ParamSpec((d,), "ones"),
-        "wq": ParamSpec((d, nh, dh)),
-        "wk": ParamSpec((d, nh, dh)),
-        "wv": ParamSpec((d, nh, dh)),
-        "w_if": ParamSpec((d, 2, nh)),
-        "w_og": ParamSpec((d, di)),
-        "w_out": ParamSpec((di, d)),
+        "m_norm": ParamSpec((d,), ("embed",), "ones"),
+        "wq": ParamSpec((d, nh, dh), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, nh, dh), ("embed", "heads", "head_dim")),
+        "wv": ParamSpec((d, nh, dh), ("embed", "heads", "head_dim")),
+        "w_if": ParamSpec((d, 2, nh), ("embed", None, "heads")),
+        "w_og": ParamSpec((d, di), ("embed", "ff")),
+        "w_out": ParamSpec((di, d), ("ff", "embed")),
     }
 
 
@@ -135,11 +140,14 @@ def slstm_specs(cfg: ArchConfig) -> dict:
     d, nh = cfg.d_model, cfg.n_heads
     dh = d // nh
     return {
-        "s_norm": ParamSpec((d,), "ones"),
-        "w_izfo": ParamSpec((d, 4, nh, dh)),
-        "r_izfo": ParamSpec((4, nh, dh, dh), scale=0.01),
-        "b_izfo": ParamSpec((4, nh, dh), "zeros"),
-        "w_sout": ParamSpec((d, d)),
+        "s_norm": ParamSpec((d,), ("embed",), "ones"),
+        "w_izfo": ParamSpec((d, 4, nh, dh),
+                            ("embed", None, "heads", "head_dim")),
+        "r_izfo": ParamSpec((4, nh, dh, dh),
+                            (None, "heads", "head_dim", None), scale=0.01),
+        "b_izfo": ParamSpec((4, nh, dh), (None, "heads", "head_dim"),
+                            "zeros"),
+        "w_sout": ParamSpec((d, d), ("ff", "embed")),
     }
 
 
@@ -212,22 +220,42 @@ def param_schema(cfg: ArchConfig) -> dict:
     ``"enc_blocks"``."""
     d, vp = cfg.d_model, cfg.padded_vocab
     schema: dict = {
-        "embed": ParamSpec((vp, d)),
-        "final_norm": ParamSpec((d,), "ones"),
+        "embed": ParamSpec((vp, d), ("vocab", "embed")),
+        "final_norm": ParamSpec((d,), ("embed",), "ones"),
         "blocks": {block_key(bi, kind): block_specs(cfg, kind)
                    for bi, kind in enumerate(block_pattern(cfg))},
     }
     if not cfg.tie_embeddings:
-        schema["lm_head"] = ParamSpec((d, vp))
+        schema["lm_head"] = ParamSpec((d, vp), ("embed", "vocab"))
     if cfg.is_encdec:
         schema["enc_blocks"] = {"enc": enc_block_specs(cfg)}
-        schema["enc_final_norm"] = ParamSpec((d,), "ones")
+        schema["enc_final_norm"] = ParamSpec((d,), ("embed",), "ones")
     if cfg.frontend == "vision_stub":
-        schema["vision_proj"] = ParamSpec((1280, d))
+        schema["vision_proj"] = ParamSpec((1280, d), (None, "embed"))
     if cfg.frontend == "audio_stub":
-        schema["audio_proj"] = ParamSpec((128, d))
+        schema["audio_proj"] = ParamSpec((128, d), (None, "embed"))
     return schema
 
+
+
+def _stack(specs: dict, n: int) -> dict:
+    """Add the scanned leading "layers" axis to every spec."""
+    return {k: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init,
+                         s.scale) for k, s in specs.items()}
+
+
+def stacked_schema(cfg: ArchConfig) -> dict:
+    """The reference's ``param_schema``: :func:`param_schema` with every
+    block's specs stacked over the ``n_super`` super-blocks and the
+    encoder's over its ``n_enc_layers`` layers."""
+    schema = param_schema(cfg)
+    n_super = cfg.n_layers // len(block_pattern(cfg))
+    schema["blocks"] = {k: _stack(v, n_super)
+                        for k, v in schema["blocks"].items()}
+    if "enc_blocks" in schema:
+        schema["enc_blocks"] = {"enc": _stack(schema["enc_blocks"]["enc"],
+                                              cfg.n_enc_layers)}
+    return schema
 
 def param_count(cfg: ArchConfig, padded: bool = False) -> int:
     """Total parameter count from the schema (vocab padding excluded by

@@ -58,6 +58,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers, moe
 from repro_torch.models.schema import (block_pattern, enc_block_specs,
                                        layer_kinds, param_schema)
+from repro_torch.models.sharding_api import NO_SHARD, ShardPolicy
 from repro_torch.models.ssm import mamba_mixer, mlstm_mixer, slstm_mixer
 
 # the fields of a config that describe no weights: the forward may run
@@ -109,10 +110,14 @@ def _write_kv(cfg: ArchConfig, cache: dict, k: torch.Tensor,
 
 def _attention(cfg: ArchConfig, p: dict, x: torch.Tensor, positions,
                mode: str, cache: dict | None, pos: int, mrope_pos=None,
-               pfx: str = "", cross_src=None, causal: bool = True):
+               pfx: str = "", cross_src=None, causal: bool = True,
+               shard: ShardPolicy = NO_SHARD):
     """The attention sublayer, self (``pfx`` "") or cross (``pfx`` "x").
     Returns (out, new cache entries); in "decode" a self-attention writes
-    the caller's ``cache`` in place."""
+    the caller's ``cache`` in place. ``shard`` constrains the layouts
+    where the reference's does; in "train" and "prefill" its
+    ``kv_repeat`` repeats the KV heads before the attention (the cache
+    keeps them unrepeated)."""
     dt = x.dtype
     h = layers.rms_norm(x, p[f"{pfx}attn_norm"], cfg.norm_eps)
     q = torch.einsum("bsd,dhe->bshe", h, p[f"{pfx}wq"].to(dt))
@@ -129,6 +134,7 @@ def _attention(cfg: ArchConfig, p: dict, x: torch.Tensor, positions,
             v = torch.einsum("bsd,dhe->bshe", cross_src, p["xwv"].to(dt))
             if mode == "prefill":
                 new_cache = {"xk": k, "xv": v}
+        q = shard(q, ("attn_batch", "attn_seq", "heads", "head_dim"))
         out = layers.gqa_attention(q, k, v, causal=False)
     else:
         k = torch.einsum("bsd,dhe->bshe", h, p["wk"].to(dt))
@@ -146,17 +152,29 @@ def _attention(cfg: ArchConfig, p: dict, x: torch.Tensor, positions,
             k = layers.apply_rope(k, positions, cfg.rope_theta)
         if mode == "decode":
             kf, vf = _write_kv(cfg, cache, k, v, pos, dt)
+            kf = shard(kf, ("batch", "kv_seq", "kv_heads", "head_dim"))
+            vf = shard(vf, ("batch", "kv_seq", "kv_heads", "head_dim"))
+            q = shard(q, ("attn_batch", "attn_seq", "heads", "head_dim"))
             out = layers.gqa_attention(q, kf, vf, causal=False,
                                        kv_len=pos + 1)
         else:
+            if mode == "prefill":
+                new_cache = {"k": k, "v": v}
+            if shard.kv_repeat > 1:
+                k = k.repeat_interleave(shard.kv_repeat, dim=2)
+                v = v.repeat_interleave(shard.kv_repeat, dim=2)
+            q = shard(q, ("attn_batch", "attn_seq", "heads", "head_dim"))
+            k = shard(k, ("attn_batch", "attn_seq", "rep_kv_heads",
+                          "head_dim"))
+            v = shard(v, ("attn_batch", "attn_seq", "rep_kv_heads",
+                          "head_dim"))
             if cfg.use_flash_attention:
                 out = flash_ops.flash_attention(q, k, v, causal=causal)
             else:
                 out = layers.gqa_attention(q, k, v, causal=causal)
-            if mode == "prefill":
-                new_cache = {"k": k, "v": v}
+    out = shard(out, ("attn_batch", "attn_seq", "heads", "head_dim"))
     y = torch.einsum("bshe,hed->bsd", out, p[f"{pfx}wo"].to(dt))
-    return y, new_cache
+    return shard(y, ("batch", "seq", "embed")), new_cache
 
 
 class Block(nn.Module):
@@ -173,11 +191,13 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, mode: str, cache: dict | None, pos: int,
-                mrope_pos=None, cross_src=None):
+                mrope_pos=None, cross_src=None,
+                shard: ShardPolicy = NO_SHARD):
         """Returns (x, cache, aux): the layer's new cache in "prefill",
         the caller's ``cache`` in "decode" (K/V written in place, the
         recurrent states' entries replaced by the new states), ``{}`` in
         "train"; ``aux`` the MoE's load-balance loss (None without)."""
+        act = ("batch", "seq", "embed")
         p = self._parameters
         aux = None
         new_cache: dict = {}
@@ -187,22 +207,24 @@ class Block(nn.Module):
             h = layers.rms_norm(x, p["m_norm" if self.kind == "mlstm"
                                      else "s_norm"], cfg.norm_eps)
             y, st = mixer(h, p, cfg, state=state, mode=mode)
-            x = x + y
+            x = x + shard(y, act)
             new_cache.update(st or {})
         else:
             mixer_kind, ffn_kind = self.kind.split("+")
             if mixer_kind == "attn":
                 y, kvc = _attention(cfg, p, x, positions, mode, cache, pos,
-                                    mrope_pos=mrope_pos)
+                                    mrope_pos=mrope_pos, shard=shard)
                 new_cache.update(kvc)
             else:
                 h = layers.rms_norm(x, p["m_norm"], cfg.norm_eps)
                 y, st = mamba_mixer(h, p, cfg, state=state, mode=mode)
+                y = shard(y, act)
                 new_cache.update(st or {})
             x = x + y
             if cfg.is_encdec:
                 y, xc = _attention(cfg, p, x, positions, mode, cache, pos,
-                                   pfx="x", cross_src=cross_src)
+                                   pfx="x", cross_src=cross_src,
+                                   shard=shard)
                 x = x + y
                 new_cache.update(xc)
             if ffn_kind == "moe":
@@ -214,12 +236,12 @@ class Block(nn.Module):
                                      p["we_up"], p["we_down"],
                                      topk=cfg.moe_topk, capacity_factor=cf,
                                      group_size=cfg.moe_group_size,
-                                     dispatch=cfg.moe_dispatch)
-                x = x + y
+                                     dispatch=cfg.moe_dispatch, shard=shard)
+                x = x + shard(y, act)
             elif cfg.d_ff or cfg.dense_ff:
                 h = layers.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-                x = x + layers.swiglu(h, p["w_gate"], p["w_up"],
-                                      p["w_down"])
+                x = x + shard(layers.swiglu(h, p["w_gate"], p["w_up"],
+                                            p["w_down"]), act)
         if mode == "decode":
             cache.update(new_cache)              # the recurrent states
             return x, cache, aux
@@ -236,15 +258,17 @@ class EncoderBlock(nn.Module):
         _params(self, specs, dtype, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ArchConfig) -> torch.Tensor:
+                cfg: ArchConfig,
+                shard: ShardPolicy = NO_SHARD) -> torch.Tensor:
         p = self._parameters
         y, _ = _attention(cfg, p, x, positions, "train", None, 0,
-                          causal=False)
+                          causal=False, shard=shard)
         x = x + y
         h = layers.layer_norm(x, p["mlp_norm"], p["mlp_norm_b"],
                               cfg.norm_eps)
-        return x + layers.gelu_mlp(h, p["w_up"], p["b_up"], p["w_down"],
-                                   p["b_down"])
+        return x + shard(layers.gelu_mlp(h, p["w_up"], p["b_up"],
+                                         p["w_down"], p["b_down"]),
+                         ("batch", "seq", "embed"))
 
 
 class DecoderLM(nn.Module):
@@ -291,7 +315,8 @@ class DecoderLM(nn.Module):
         return logits, caches
 
     def _super_block(self, start: int, period: int, x: torch.Tensor,
-                     positions, cfg: ArchConfig, mrope_pos, cross_src):
+                     positions, cfg: ArchConfig, mrope_pos, cross_src,
+                     shard: ShardPolicy = NO_SHARD):
         """The train-mode forward of the ``period`` layers from ``start``
         (one super-block of the reference's scan): (x, the sum of their
         MoE losses). With ``cfg.remat`` and grad mode on it runs under
@@ -302,7 +327,8 @@ class DecoderLM(nn.Module):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for blk in self.blocks[start:start + period]:
                 x, _, a = blk(x, positions, cfg, "train", None, 0,
-                              mrope_pos=mrope_pos, cross_src=cross_src)
+                              mrope_pos=mrope_pos, cross_src=cross_src,
+                              shard=shard)
                 if a is not None:
                     aux = aux + a
             return x, aux
@@ -316,7 +342,8 @@ class DecoderLM(nn.Module):
             caches: list | None = None, pos: int = 0, *,
             image_embeds: torch.Tensor | None = None,
             mrope_positions: torch.Tensor | None = None,
-            cross_src: torch.Tensor | None = None):
+            cross_src: torch.Tensor | None = None,
+            shard: ShardPolicy = NO_SHARD):
         """Run with ``cfg`` (default: the config the model was built
         with; :meth:`check_cfg`). ``image_embeds`` (B, S_img, 1280), with
         a vision stub, are projected and put before the tokens;
@@ -329,8 +356,10 @@ class DecoderLM(nn.Module):
         place and returned; a ``pos`` outside [0, max_len) of the
         attention caches raises ``ValueError`` (the reference's
         ``dynamic_update_slice`` would clamp it). "train" returns no
-        caches (``None``). Returns (logits, caches, aux), ``aux`` the
-        MoE load-balance losses summed over the layers (f32)."""
+        caches (``None``). ``shard`` (models/sharding_api.py) constrains
+        the layouts where the reference's does, the default none. Returns
+        (logits, caches, aux), ``aux`` the MoE load-balance losses summed
+        over the layers (f32)."""
         cfg = self.check_cfg(cfg)
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -352,6 +381,7 @@ class DecoderLM(nn.Module):
             img = torch.einsum("bse,ed->bsd", image_embeds.to(dt),
                                self.vision_proj.to(dt))
             x = torch.cat([img, x], dim=1)
+        x = shard(x, ("batch", "seq", "embed"))
         B, S = x.shape[:2]
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :] \
@@ -362,19 +392,21 @@ class DecoderLM(nn.Module):
             period = len(block_pattern(cfg))
             for s in range(0, len(self.blocks), period):
                 x, a = self._super_block(s, period, x, positions, cfg,
-                                         mrope_positions, cross_src)
+                                         mrope_positions, cross_src, shard)
                 aux = aux + a
         else:
             for i, blk in enumerate(self.blocks):
                 x, c, a = blk(x, positions, cfg, mode,
                               caches[i] if mode == "decode" else None, pos,
-                              mrope_pos=mrope_positions, cross_src=cross_src)
+                              mrope_pos=mrope_positions, cross_src=cross_src,
+                              shard=shard)
                 new_caches.append(c)
                 if a is not None:
                     aux = aux + a
         x = layers.rms_norm(x, self.final_norm, cfg.norm_eps)
         w = self.embed.T if cfg.tie_embeddings else self.lm_head
-        logits = torch.einsum("bsd,dv->bsv", x, w.to(dt))
+        logits = shard(torch.einsum("bsd,dv->bsv", x, w.to(dt)),
+                       ("batch", "seq", "vocab"))
         if mode == "decode":
             return logits, caches, aux
         return logits, (None if mode == "train" else new_caches), aux

@@ -30,6 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.models import convert
 from repro_torch.models import model as model_api
+from repro_torch.models.sharding_api import NO_SHARD, ShardPolicy
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule)
@@ -50,13 +51,15 @@ class TrainConfig:
 
 
 def make_step(cfg: ArchConfig, opt: AdamWConfig, warmup: int,
-              total: int) -> Callable:
+              total: int, shard: ShardPolicy = NO_SHARD) -> Callable:
     """(model, opt_state, batch) → (loss, metrics): one training step,
     the model's parameters and ``opt_state`` updated in place. The
     gradient is ``models.model.loss_and_grads``'s (a zero one where the
-    forward does not reach a parameter, as in the reference)."""
+    forward does not reach a parameter, as in the reference), under the
+    shard policy ``shard``."""
     def step_fn(model: DecoderLM, opt_state: dict, batch: dict):
-        loss, metrics, grads = model_api.loss_and_grads(cfg, model, batch)
+        loss, metrics, grads = model_api.loss_and_grads(cfg, model, batch,
+                                                        shard)
         lr = cosine_schedule(opt_state["step"], warmup=warmup, total=total)
         adamw_update(grads, opt_state, dict(model.named_parameters()), opt,
                      lr_scale=lr)
