@@ -75,7 +75,7 @@ Phases, one line each before the last:
    builds.
    Then ``duel``: kernel F, the NETDUEL scan between promotions and its
    re-arm, at the engine's scale (10⁵ objects, K 448, C_a streamed, from
-   random slots, 4,096 requests, window 256), once through F (counted)
+   random slots, 2,048 requests, window 256), once through F (counted)
    and once through the plain scan on the card: every output bitwise
    equal, at least one promotion, F's launches one per promoting step
    plus one and one re-arm launch per promoting step; every re-arm held
@@ -87,7 +87,9 @@ Phases, one line each before the last:
    (random weights from a seed) in front of a 100,000-object catalog.
    The main path: cold serving, ``refresh_placement()`` (cascade on the
    card), warm serving and one background ``request_refresh`` →
-   ``wait_refresh`` → ``poll_refresh`` cycle; kernel launch counts are
+   ``wait_refresh`` → ``poll_refresh`` cycle (solved by the §4 warm
+   start: the synchronous refresh ran the cascade on the same window); kernel
+   launch counts are
    zeroed just before it and read just after it. Then checks outside
    it: the installed lookup pricing the observed window at the
    predicted C(A), the looped lookup (kernel B, its own path, counted
@@ -100,24 +102,26 @@ Phases, one line each before the last:
    warm start (solve and Prop 4.2 band map in NumPy, a 512-request
    LOCALSWAP polish on the card): its refresh split into solve, map and
    polish, its swaps, its predicted C(A) beside the cascade's, warm
-   serving, one background refresh; launches counted over the run
-   (kernel A's among them). The warm start of the refresh's window is
+   serving (the engine phase's background refresh runs this warm
+   start on a worker thread);
+   launches counted over the run (kernel A's among them). The warm start of the refresh's window is
    then held against the same call on a CPU ``DeviceInstance`` over the
-   first 64 polish requests: ``slots_warm`` bitwise, the polished slots
+   first 32 polish requests: ``slots_warm`` bitwise, the polished slots
    equal or first parted at an f32 edge.
    Then ``warm_1e6``: the warm start at 10⁶ objects (the reference
    suite's chain, tandem and tree on a 1000 × 1000 grid, and the §4.4
    tandem with arrivals at both nodes), unpolished: seconds of the
    solve and the map, a valid banded allocation, the card's streamed
    C(A) against the empty allocation's, a total under 60 s, and the
-   tandem's f32 descent on the card held against the CPU's.
+   tandem's f32 descent on the card held against the CPU's over its
+   first 1,000 iterations.
 7. ``prefill`` — granite-3-2b at full width, B = 2, S = 2048 (bf16),
    with ``use_flash_attention`` on and then off on the same weights:
    logit agreement, both times, kernel E's launches per flash forward
    (one per layer); and once more in f32 at B = 1, S = 512, where the
    two attentions must agree to f32 rounding.
    Then ``generate``: ``greedy_generate`` (prefill, padded cache, serve
-   steps) on those weights at full depth, B 4, a 512-token prompt, 32
+   steps) on those weights at full depth, B 4, a 512-token prompt, 16
    new tokens, in f32 (flash off), bf16 (flash on: E in the prefill)
    and bf16 with the int8 KV cache; the same loops step by step for the
    holds: f32 logits against the teacher-forced full forward to 1e-3
@@ -141,8 +145,9 @@ Phases, one line each before the last:
    a background one), the batch percentiles beside the ``stream``
    phase's.
    Then ``duel_engine``: the online plane on the serving path — the
-   same engine with ``netduel`` and ``refresh_on_promotion`` (1,024 cold
-   requests, ``refresh_placement()``, 4,096 warm requests, the drain),
+   same engine with ``netduel`` and ``refresh_on_promotion``, its solves
+   GREEDY alone (1,024 cold requests, ``refresh_placement()``, 2,048
+   warm requests, the drain),
    its launches counted over the run (F's steps and re-arms among
    them); every batch each duel plane observed is replayed through a
    second ``DuelPlane`` on the plain scan, whose carry must equal the
@@ -152,7 +157,7 @@ Phases, one line each before the last:
    slots, 4 ingresses) on the stream's catalog rescaled by the reference
    hit-rate bench's rule; GREEDY on the card (kernel C in 5 groups a
    call, counted; C then held against its plain version at the seed's
-   inputs) and 4,096 requests through the engine's strategy plane for
+   inputs) and 2,048 requests through the engine's strategy plane for
    each of the five strategies (kernel E on the misses, counted): hit
    rate, mean cost and batch percentiles beside GREEDY's C(A).
    Then ``gain_quant``: on the stream's catalog and the engine's
@@ -178,7 +183,7 @@ Phases, one line each before the last:
    Then ``gate``: the ``stream`` configuration with
    ``refresh_min_gain`` 100: every stationary request skipped (no solve,
    no swap), a drift to uniform demand (``set_streams``) triggering a
-   solve that swaps in; the surrogate's time a call; launches counted
+   solve (GREEDY alone) that swaps in; the surrogate's time a call; launches counted
    over the phase.
    Then ``mesh``: the mesh layer (item 14d) on the same weights, no new
    model: (a) the train-mode loss under the production train policy
@@ -235,17 +240,27 @@ Phases, one line each before the last:
    largest |g|, f32 compute): granite at full width cut to 2 layers (B
    2, S 128) and the nine other archs at their smoke configs. Kill and
    resume at the 2-layer cut (6 straight steps against 4, a checkpoint
-   and a resumed 2; 2e-4, and whether bitwise). ``python -m
-   repro_torch.launch.train --arch granite-3-2b --steps 20`` in a
-   subprocess: exit 0 and a finite final loss.
+   and a resumed 2; 2e-4, and whether bitwise).
 9. ``launch`` — ``python -m repro_torch.launch.serve`` in subprocesses
    started together on the card: the batch loop, streaming, streaming
    with ``--netduel``, the batch loop with ``--warm-start``, and
    ``--scenario scale_free --strategy lce`` in both loops, and the batch
    loop with ``--arch jamba-1.5-large-398b``; each must exit 0 and print
    its final ``[serve] … hit-rate`` line (and the duel churn with
-   ``--netduel``, the scenario with ``--scenario``).
-10. ``kernels`` — one JSON object with every kernel's numbers; A's and
+   ``--netduel``, the scenario with ``--scenario``). Beside them
+   ``python -m repro_torch.launch.train --arch granite-3-2b --steps 6``:
+   exit 0 and a finite final loss.
+10. ``examples`` — the examples' twins (``examples/*_torch.py``) in
+   this process, at their reference examples' sizes: netduel_online,
+   serve_simcache, streaming_serve, and train_lm at 30 steps; each
+   example's promises held (the host replay equal to the device scan,
+   the warm hit rate and cost, the request and batch counts, finite
+   losses and a resume from the checkpoint's step), the launches of A,
+   C and F counted in each run, and each of those launches held: every
+   A and C call of serve_simcache and streaming_serve against its plain
+   version, streaming_serve's duel planes replayed bitwise on the plain
+   scan and on F.
+11. ``kernels`` — one JSON object with every kernel's numbers; A's and
    B's entries also carry each of their two shapes (K 448 and 65,536),
    C's its two (R = O = 10⁵ and 20,000) and its times past 8 caches; F's
    steps (``duel_scan``) and its re-arm (``duel_rearm``) count the
@@ -257,7 +272,8 @@ Phases, one line each before the last:
    ``generate`` and ``generate_wide`` (``launches_generate``) and in
    the ``families`` phase's counted runs (``launches_families``), and in
    the ``mesh`` phase's policy prefill (``launches_mesh``, with E's hold
-   at that shape, ``mesh_hold``); A's also
+   at that shape, ``mesh_hold``); A's, C's and F's their launches in
+   the ``examples`` phase (``launches_examples``); A's also
    its launches over the ``compress`` runs; A's and C's their launches
    in the sharded phases (``launches_sharded``), and A's the hold of its
    shard-local entry (``shard_local_hold``). Beside the
@@ -296,8 +312,14 @@ U32 = 2.0 ** -24          # f32 unit roundoff
 U_BF16 = 2.0 ** -8        # bf16 unit roundoff
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line; ``elapsed_s`` is the script's seconds so far."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -325,14 +347,15 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int, match: str, tries: int = 3) -> dict:
+def device_ms(torch, fn, iters: int, match: str, tries: int = 6) -> dict:
     """Device time per call of ``fn`` from torch.profiler's trace (its
     CUDA events, as ``trace_solve.py`` reads them): the kernels whose name
     contains ``match`` (every device event of the call, kernels, copies
     and memsets, with ``match=""``), their launches per call, and the
     memsets beside them, over ``iters`` calls after one warm-up call.
-    Now and then (once in ~60 windows on the card) a window's trace comes
-    back without its device events, so a window is kept only when its
+    Now and then (once in ~60 windows on the card; in one run, three
+    windows of B in a row) a window's trace comes back without some of
+    its device events, so a window is kept only when its
     count is a whole number per call or, with ``match=""``, the same as
     an earlier window's; else it is taken again, up to ``tries`` times,
     and then refused."""
@@ -855,21 +878,26 @@ class captured:
             setattr(module, attr, fn)
 
 
-def hold_a_calls(torch, net, q, flags) -> list:
-    """Kernel A's every call in one lookup of ``q`` with ``flags`` — the
-    rescore over the gathered rows and the verifier's re-scan over the
-    whole layout, at the shapes and split plans the path gives them —
-    each held against its plain version (:func:`hold_fused`). The checks'
-    fields with the call's role and shape."""
+def a_targets(keep) -> list:
+    """:class:`captured`'s targets for kernel A's entries: the rescore
+    over gathered rows (``ops.fused_lookup``) and the fused lookup and
+    the verifier's re-scan over the whole layout (``simcache``'s)."""
     from repro_torch.core import simcache
     from repro_torch.kernels.knn import ops
-    keep = lambda a, kw, out: (a, kw, out)  # noqa: E731
-    with captured([("rescore", ops, "fused_lookup", keep),
-                   ("rescan", simcache, "fused_lookup", keep)]) as cap:
-        net.lookup(q, **flags)
+    return [("rescore", ops, "fused_lookup", keep),
+            ("rescan", simcache, "fused_lookup", keep)]
+
+
+def hold_captured_a(torch, calls) -> list:
+    """Each captured call of kernel A (``captured.calls`` of
+    :func:`a_targets`) with a key held against its plain version
+    (:func:`hold_fused`); a call with no key launches nothing. The
+    checks' fields with the call's role and shape."""
     held = []
-    for role, calls in cap.calls.items():
-        for (qs, keys, h_key, meta), kw, out in calls:
+    for role in ("rescore", "rescan"):
+        for (qs, keys, h_key, meta), kw, out in calls.get(role, []):
+            if keys.shape[0] == 0:
+                continue
             if (kw["metric"], kw["gamma"], kw["repo_level"],
                     kw.get("fold_repo", True)) != ("l2", 1.0, -1, True):
                 raise RuntimeError(f"A's {role} call is not the l2, γ 1, "
@@ -879,6 +907,68 @@ def hold_a_calls(torch, net, q, flags) -> list:
                 role=role, Q=qs.shape[0], K=keys.shape[0], D=keys.shape[1],
                 **_plan_fields(torch, qs.shape[0], keys.shape[0],
                                keys.shape[1])))
+    return held
+
+
+def hold_a_calls(torch, net, q, flags) -> list:
+    """Kernel A's every call in one lookup of ``q`` with ``flags`` — the
+    rescore over the gathered rows and the verifier's re-scan over the
+    whole layout, at the shapes and split plans the path gives them —
+    each held against its plain version (:func:`hold_captured_a`)."""
+    keep = lambda a, kw, out: (a, kw, out)  # noqa: E731
+    with captured(a_targets(keep)) as cap:
+        net.lookup(q, **flags)
+    return hold_captured_a(torch, cap.calls)
+
+
+def cloned(torch, x):
+    """``x`` with every tensor in it (in tuples, lists and dicts) cloned,
+    so that a captured call keeps its inputs as the call saw them."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(cloned(torch, v) for v in x)
+    if isinstance(x, dict):
+        return {k: cloned(torch, v) for k, v in x.items()}
+    return x
+
+
+def c_targets(torch) -> list:
+    """:class:`captured`'s target for kernel C's entry on an unsharded
+    instance (``DeviceInstance.gains`` → ``placement_gains``): each exact
+    call's inputs and output, cloned; a quantized call launches no C."""
+    from repro_torch.kernels import knn
+    keep = lambda a, kw, out: None if kw.get("quantize") else (  # noqa
+        cloned(torch, a), dict(kw), out.clone())
+    return [("gains", knn, "placement_gains", keep)]
+
+
+def hold_captured_c(torch, calls) -> list:
+    """Each captured call of kernel C (:func:`c_targets`, R = O: the
+    instance's own coordinates) held against its plain version
+    (``_gains_tiles``) on the same inputs, at the tolerance of the
+    ``scenario`` phase: :func:`gain_tolerance` summed over the ingresses
+    plus 1e-4 relative. The checks' fields with the call's shape and its
+    launches (one per group of caches)."""
+    from repro_torch.kernels.knn.gains import (_gains_tiles, _j_groups,
+                                               _sentinel)
+    held = []
+    for (x, y, lam, cur, hreq), kw, out in calls.get("gains", []):
+        if (kw.get("metric", "l2"), kw.get("gamma", 1.0)) != ("l2", 1.0) \
+                or not torch.equal(x, y):
+            raise RuntimeError(f"C's call is not the l2, γ 1, R = O call "
+                               f"the hold checks: {kw}")
+        ref = _gains_tiles(x, y, lam, cur, _sentinel(hreq), "l2", 1.0)
+        err = (out - ref).abs()
+        tol = gain_tolerance(torch, x, lam).sum(0)[:, None] \
+            + 1e-4 * ref.abs()
+        held.append(dict(R=x.shape[0], O=y.shape[0], D=x.shape[1],
+                         I=lam.shape[0], J=hreq.shape[1],
+                         launches=len(_j_groups(hreq.shape[1])),
+                         max_abs_err=float(err.max()),
+                         tol_max=float(tol.max()),
+                         ok=bool((err <= tol).all())
+                         and bool(torch.isfinite(out).all())))
     return held
 
 
@@ -1218,8 +1308,14 @@ def phase_engine(torch, cat, dem):
     timings = dict(eng.solve_timings)
     warm, last_ids = serve_batches(eng, cfg, dem, 2)
     v0 = eng.placement_version
+    # the background cycle solves by the §4 warm start: the cascade
+    # already solved this window, and GREEDY alone took ~43 s at 10⁵
+    # objects (~10 s the warm start); the solve reads the config on its
+    # thread, so the flag stays on until it ends
+    eng.ecfg = dataclasses.replace(ecfg, warm_start=True)
     started = eng.request_refresh()
     done = eng.wait_refresh(timeout=900)
+    eng.ecfg = ecfg
     swapped = eng.poll_refresh()
     bg = dict(started=started, done=done, swapped=swapped,
               version=eng.placement_version, predicted_cost=
@@ -1311,9 +1407,9 @@ def phase_engine(torch, cat, dem):
         predicted_cost=pred, refresh_s=refresh_s, **timings)
 
 # requests of the polish window held on the card against the CPU, a
-# cut of the engine's 512: on an H100 host's CPU 64 take ~10 s at 10⁵
+# cut of the engine's 512: on an H100 host's CPU 64 took ~13 s at 10⁵
 # objects
-HOLD_POLISH = 64
+HOLD_POLISH = 32
 # relative bound on an f32 ΔC sum's difference across devices, for a
 # decision shown to sit at an edge (P1: the card's distances are one ulp
 # from the CPU's, and each ΔC sums many of them)
@@ -1376,10 +1472,11 @@ def phase_warmstart(torch, cat, dem, params, cascade):
     """The engine phase's configuration with ``warm_start`` on, on the
     engine phase's weights: the same cold batches, ``refresh_placement()``
     (the §4 warm start: solve and band map in NumPy, the polish on the
-    card), the same warm batches and one background refresh; launches
-    counted over the run. Then the warm start of that refresh's window
-    held against the same call on a CPU ``DeviceInstance``, over the
-    first HOLD_POLISH polish requests."""
+    card) and the same warm batches; launches counted over the run (the
+    ``engine`` phase's background refresh runs this warm start on a
+    worker thread). Then the warm start of that refresh's window held
+    against the same call on a CPU ``DeviceInstance``, over the first
+    HOLD_POLISH polish requests."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.objective import DeviceInstance
     from repro_torch.core.placement import warmstart
@@ -1398,13 +1495,6 @@ def phase_warmstart(torch, cat, dem, params, cascade):
     refresh_s = time.perf_counter() - t
     timings = dict(eng.solve_timings)
     warm, _ = serve_batches(eng, cfg, dem, 2)
-    v0 = eng.placement_version
-    started = eng.request_refresh()
-    done = eng.wait_refresh(timeout=900)
-    swapped = eng.poll_refresh()
-    bg = dict(started=started, done=done, swapped=swapped,
-              version=eng.placement_version,
-              predicted_cost=eng.last_predicted_cost, **eng.solve_timings)
     counts = launch_counts()                     # read just after
 
     red = warmstart.classify_topology(inst.net, gamma=inst.cat.gamma)
@@ -1433,11 +1523,10 @@ def phase_warmstart(torch, cat, dem, params, cascade):
                predicted_cost=pred, cascade_predicted_cost=c_pred,
                gap_to_cascade=(pred - c_pred) / c_pred,
                cascade_refresh_s=cascade["refresh_s"], warm=warm,
-               background=bg, launches=counts, hold=hold)
+               launches=counts, hold=hold)
     log("warmstart", **res)
     checks = [counts["fused_lookup"] > 0, warm["hit_rate"] > 0,
               warm["mean_cost"] < ecfg.h_model, timings["warm_swaps"] >= 0,
-              started and done and swapped and bg["version"] == v0 + 1,
               hold["slots_warm_equal"],
               hold["slots_equal"] or hold["at_edge"]]
     if not all(checks):
@@ -1495,13 +1584,20 @@ def _banded_valid(inst, rep) -> bool:
     return bool(ok)
 
 
+# mirror-descent iterations of the tandem's card-against-CPU hold, a cut
+# of the solve's 3,000: the CPU's descent at 10⁶ regions took ~56 s of
+# an H100 host's time at 3,000
+WARM_HOLD_ITERS = 1000
+
+
 def phase_warm_1e6(torch):
     """The warm start at 10⁶ objects, where no discrete solver runs: the
     reference suite's chain, tandem and tree (grid L = 1000, σ = L/4,
     k = 64) and the §4.4 tandem with arrivals at both nodes, unpolished.
     Each allocation is valid and banded, and the card's streamed C(A)
     beats the empty allocation's; the tandem's descent on the card is
-    held against the CPU's on the same inputs."""
+    held against the CPU's on the same inputs over its first
+    ``WARM_HOLD_ITERS`` iterations."""
     from repro_torch.core.objective import DeviceInstance
     from repro_torch.core.placement import warmstart
     rows = []
@@ -1518,12 +1614,15 @@ def phase_warm_1e6(torch):
                          valid=_banded_valid(inst, rep)))
     tandem = inst                                # the last: tandem_both
     red = warmstart.classify_topology(tandem.net)
-    sols, hold = {}, {}
+    sols, hold = {}, dict(md_iters=WARM_HOLD_ITERS)
     for dev in ("cuda", "cpu"):
         t = time.perf_counter()
-        sols[dev] = warmstart.solve_continuous(tandem, red, device=dev)
+        sols[dev] = warmstart.solve_continuous(
+            tandem, red, md_iters=WARM_HOLD_ITERS, device=dev)
         hold[f"{dev}_s"] = time.perf_counter() - t
     a, b = sols["cuda"], sols["cpu"]
+    # the bound: the step of the solve's own last iteration (lr / √(1 +
+    # t / 100) at its 3,000th), tighter than the held window's last step
     last_step = 0.05 / np.sqrt(1.0 + 2999 / 100.0)
     hold.update(regions=tandem.cat.n, max_abs_dw1=float(np.abs(
         a.w1 - b.w1).max()), last_step=last_step,
@@ -1792,7 +1891,9 @@ def phase_gain_groups(torch, coords, lam_np):
     return rows
 
 
-DUEL_T, DUEL_WINDOW, DUEL_ARM = 4096, 256, 0.25
+# requests of the duel scan: the plain scan on the card takes ~7 ms a
+# request
+DUEL_T, DUEL_WINDOW, DUEL_ARM = 2048, 256, 0.25
 
 
 def _duel_bound(torch, objs, arm_flags, K, D, I):
@@ -1869,6 +1970,84 @@ class RearmHold:
                     dirty_rows_max=max(self.dirty or [0]))
 
 
+class duel_recorder:
+    """Context manager: every duel plane a ``SimCacheEngine`` arms inside
+    it (``_arm_duel``, patched on the class) is recorded with its initial
+    slots and every batch it observes (objects, the lookup's b1 at the
+    bucket shape, n_valid), for :func:`hold_duel_planes`; restores the
+    class on exit."""
+
+    def __enter__(self):
+        from repro_torch.serve.engine import SimCacheEngine
+        self.cls, self.planes = SimCacheEngine, []
+        arm = self.arm = SimCacheEngine._arm_duel
+        planes = self.planes
+
+        def recording_arm(eng, inst, slots):
+            arm(eng, inst, slots)
+            rec = dict(plane=eng.duel, slots0=np.asarray(slots).copy(),
+                       batches=[])
+            observe = eng.duel.observe
+
+            def recording_observe(objs, ings=None, b1_ext=None,
+                                  n_valid=None):
+                rec["batches"].append((np.asarray(objs).copy(),
+                                       b1_ext.detach().clone(), n_valid))
+                return observe(objs, ings, b1_ext, n_valid)
+            eng.duel.observe = recording_observe
+            planes.append(rec)
+        SimCacheEngine._arm_duel = recording_arm
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._arm_duel = self.arm
+
+
+def hold_duel_planes(torch, planes, ecfg) -> list:
+    """Each recorded plane (:class:`duel_recorder`) replayed outside the
+    counted run through a second ``DuelPlane`` on the plain scan (torch
+    re-arms), whose carry, served cost and step must equal the engine
+    plane's bitwise, and through a third on kernel F with every re-arm
+    held bitwise against the torch re-arm on the same inputs
+    (``RearmHold``); F's scan launches in that replay are the counted
+    run's. One dict of fields a plane."""
+    import importlib
+    nd = importlib.import_module("repro_torch.core.placement.netduel")
+    from repro_torch.core.placement import DuelPlane
+    from repro_torch.kernels.duel.duel import duel_scan_cuda
+    held = []
+    for rec in planes:
+        p = rec["plane"]
+        kw = dict(window=ecfg.duel_window, delta=ecfg.duel_delta,
+                  arm_prob=ecfg.duel_arm_prob, seed=ecfg.duel_seed)
+        twin = DuelPlane(p.dinst, rec["slots0"], plain=True, **kw)
+        again = DuelPlane(p.dinst, rec["slots0"], **kw)
+        n0 = duel_scan_cuda.launches
+        with RearmHold(torch, nd) as hold:
+            for objs, b1, n_valid in rec["batches"]:
+                twin.observe(objs, b1_ext=b1, n_valid=n_valid)
+                again.observe(objs, b1_ext=b1, n_valid=n_valid)
+        held.append(dict(
+            batches=len(rec["batches"]),
+            scan_launches=duel_scan_cuda.launches - n0,
+            promotions=p.n_promotions,
+            carry_bitwise=all(torch.equal(a, b)
+                              for a, b in zip(p.carry, twin.carry)),
+            served_equal=p.served_cost == twin.served_cost,
+            t_equal=p.t == twin.t,
+            rearms_held=hold.summary(),
+            kernel_replay_bitwise=all(torch.equal(a, b) for a, b in
+                                      zip(p.carry, again.carry))))
+    return held
+
+
+def duel_held_ok(held) -> bool:
+    """Every replayed plane of :func:`hold_duel_planes` equal bitwise."""
+    return all(h["carry_bitwise"] and h["served_equal"] and h["t_equal"]
+               and h["kernel_replay_bitwise"]
+               and h["rearms_held"]["bitwise"] for h in held)
+
+
 def _rearm_bound(args, n_promoted: int, n_dirty: int):
     """The re-arm's bound from one call's inputs: bytes, the four
     pre-fold tables read (24 B an entry) and the seven tables written
@@ -1888,7 +2067,7 @@ def phase_duel(torch, cat, dem, clock_hz: float):
     Zipf(0.8) demand, its three levels (64 / 128 / 256 slots, K = 448,
     h = 0 / 15 / 150, h_repo 1000), C_a streamed (``materialize_ca=False``,
     the engine's duel plane), from ``random_slots`` so that duels
-    promote. The scan runs over 4,096 requests with window 256 once
+    promote. The scan runs over 2,048 requests with window 256 once
     through F (counted: its steps and its re-arm entry) and once through
     ``_duel_scan_ref``, the plain scan (its re-arms torch ops), both on
     the card; every output must be bitwise equal (events, slots, virt,
@@ -2040,12 +2219,17 @@ def phase_duel(torch, cat, dem, clock_hz: float):
     return res, rearm
 
 
+# warm requests of the duel_engine run: its replay on the
+# plain scan takes as long as the run
+DUEL_ENGINE_WARM = 2048
+
+
 def phase_duel_engine(torch, params):
     """The online plane on the serving path, at full width: the ``stream``
     phase's engine (granite-3-2b, 40 layers, flash attention, the
     20,000-object catalog, 4 Zipf(1.0) streams) with ``netduel`` and
     ``refresh_on_promotion``: 1,024 cold requests, ``refresh_placement()``
-    (which arms the duel plane), 4,096 warm requests behind
+    (which arms the duel plane), 2,048 warm requests behind
     ``StreamDriver``, ``drain_refresh()``. The launch counts are zeroed
     just before and read just after. Every batch each duel plane observed
     (objects, the lookup's b1 at the bucket shape, n_valid) is recorded;
@@ -2053,13 +2237,12 @@ def phase_duel_engine(torch, params):
     second ``DuelPlane`` on the plain scan (torch re-arms), whose carry
     must equal the engine plane's bitwise, and through a third on kernel
     F with every re-arm held bitwise against the torch re-arm on the
-    same inputs (``RearmHold``)."""
-    import importlib
-    nd = importlib.import_module("repro_torch.core.placement.netduel")
+    same inputs (``RearmHold``): :func:`hold_duel_planes`. Its solves are
+    GREEDY alone (the ``stream`` phase runs the cascade on the same
+    catalog)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import catalog as catalog_api
     from repro_torch.core import demand as demand_api
-    from repro_torch.core.placement import DuelPlane
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import (EngineConfig, SimCacheEngine,
                                    StreamDriver, StreamSpec)
@@ -2068,63 +2251,31 @@ def phase_duel_engine(torch, params):
                               use_flash_attention=True)
     cat = catalog_api.embedding_catalog(n=20_000, dim=100, seed=1)
     ecfg = EngineConfig(h_ici=15.0, h_dcn=150.0, h_model=1000.0,
-                        netduel=True, refresh_on_promotion=True)
+                        netduel=True, refresh_on_promotion=True,
+                        algo="greedy")
     eng = SimCacheEngine(cfg, params, ecfg, cat.coords)
-    planes = []
-    arm = eng._arm_duel
-
-    def recording_arm(inst, slots):
-        arm(inst, slots)
-        rec = dict(plane=eng.duel, slots0=np.asarray(slots).copy(),
-                   batches=[])
-        observe = eng.duel.observe
-
-        def recording_observe(objs, ings=None, b1_ext=None, n_valid=None):
-            rec["batches"].append((np.asarray(objs).copy(),
-                                   b1_ext.detach().clone(), n_valid))
-            return observe(objs, ings, b1_ext, n_valid)
-        eng.duel.observe = recording_observe
-        planes.append(rec)
-    eng._arm_duel = recording_arm
     streams = [StreamSpec(demand=demand_api.zipf(cat, alpha=1.0, seed=s + 1),
                           rate=1.0 + s, seed=s + 1, name=f"stream{s}")
                for s in range(4)]
     drv = StreamDriver(eng, streams, max_batch=256, batch_window=2.0,
                        prompt_len=128, refresh_every=0)
-    reset_launch_counts()                        # the main path's run
-    t0 = time.perf_counter()
-    cold = drv.run(1024)
-    cold_stats, eng.stats = eng.stats, type(eng.stats)()
-    pred = eng.refresh_placement()
-    warm = drv.run(4096)
-    t = time.perf_counter()
-    drained = drv.drain_refresh()
-    drain_s = time.perf_counter() - t
-    counts = launch_counts()                      # read just after
+    with duel_recorder() as recorder:
+        reset_launch_counts()                    # the main path's run
+        t0 = time.perf_counter()
+        cold = drv.run(1024)
+        cold_stats, eng.stats = eng.stats, type(eng.stats)()
+        pred = eng.refresh_placement()
+        warm = drv.run(DUEL_ENGINE_WARM)
+        t = time.perf_counter()
+        drained = drv.drain_refresh()
+        drain_s = time.perf_counter() - t
+        counts = launch_counts()                  # read just after
     phase_s = time.perf_counter() - t0
     w = eng.stats
 
-    held = []
+    planes = recorder.planes
     t = time.perf_counter()
-    for rec in planes:
-        p = rec["plane"]
-        kw = dict(window=ecfg.duel_window, delta=ecfg.duel_delta,
-                  arm_prob=ecfg.duel_arm_prob, seed=ecfg.duel_seed)
-        twin = DuelPlane(p.dinst, rec["slots0"], plain=True, **kw)
-        again = DuelPlane(p.dinst, rec["slots0"], **kw)
-        with RearmHold(torch, nd) as hold:
-            for objs, b1, n_valid in rec["batches"]:
-                twin.observe(objs, b1_ext=b1, n_valid=n_valid)
-                again.observe(objs, b1_ext=b1, n_valid=n_valid)
-        held.append(dict(
-            batches=len(rec["batches"]), promotions=p.n_promotions,
-            carry_bitwise=all(torch.equal(a, b)
-                              for a, b in zip(p.carry, twin.carry)),
-            served_equal=p.served_cost == twin.served_cost,
-            t_equal=p.t == twin.t,
-            rearms_held=hold.summary(),
-            kernel_replay_bitwise=all(torch.equal(a, b) for a, b in
-                                      zip(p.carry, again.carry))))
+    held = hold_duel_planes(torch, planes, ecfg)
     replay_s = time.perf_counter() - t
     res = dict(model=cfg.name, n_layers=cfg.n_layers, catalog=cat.n,
                streams=len(streams), duel_window=ecfg.duel_window,
@@ -2148,9 +2299,7 @@ def phase_duel_engine(torch, params):
               counts["flash_attention"] > 0, w.hit_rate > 0,
               w.mean_cost < ecfg.h_model, not eng.refresh_in_flight,
               any(h["batches"] for h in held),
-              all(h["carry_bitwise"] and h["served_equal"] and h["t_equal"]
-                  and h["kernel_replay_bitwise"]
-                  and h["rearms_held"]["bitwise"] for h in held),
+              duel_held_ok(held),
               counts["duel_rearm"] == sum(h["rearms_held"]["calls"]
                                           for h in held) > 0]
     if not all(checks):
@@ -2244,7 +2393,7 @@ def phase_prefill(torch):
     return params
 
 
-GEN_B, GEN_PROMPT, GEN_STEPS = 4, 512, 32       # the ``generate`` phase
+GEN_B, GEN_PROMPT, GEN_STEPS = 4, 512, 16       # the ``generate`` phase
 # the ``generate_wide`` phase: (arch, depth kept or None for all, steps)
 GEN_WIDE = (("phi3-medium-14b", None, 16), ("deepseek-coder-33b", 8, 8),
             ("deepseek-67b", 8, 8))
@@ -2470,7 +2619,7 @@ def int8_perturbation(torch, seed: int):
 
 def phase_generate(torch, params, clock_hz: float) -> dict:
     """``greedy_generate`` on granite-3-2b at full width and depth (the
-    ``prefill`` phase's weights), B 4, a 512-token prompt, 32 new tokens,
+    ``prefill`` phase's weights), B 4, a 512-token prompt, 16 new tokens,
     in three settings: f32 compute with flash off; bf16 with flash on
     (kernel E in every prefill); bf16 with flash on and
     ``kv_cache_dtype="int8"``. Each is one counted ``greedy_generate``
@@ -3163,7 +3312,7 @@ def kill_and_resume(torch, cfg) -> dict:
 
 def train_launcher() -> dict:
     """``python -m repro_torch.launch.train --arch granite-3-2b --steps
-    20`` in a subprocess (its checkpoints in a fresh directory): exit 0
+    6`` in a subprocess (its checkpoints in a fresh directory): exit 0
     and a finite final loss on its last line."""
     import os
     import shutil
@@ -3171,7 +3320,7 @@ def train_launcher() -> dict:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_launch_train_")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           TRAIN_ARCH, "--steps", "20", "--ckpt", ckpt]
+           TRAIN_ARCH, "--steps", "6", "--ckpt", ckpt]
     t = time.perf_counter()
     try:
         p = subprocess.run(cmd, capture_output=True, text=True, env=env,
@@ -3203,8 +3352,10 @@ def phase_train(torch) -> None:
       compute, B 2, S 128) and every other arch at its smoke config,
       every parameter's gradient on the card against the port's CPU
       gradient of the same weights;
-    * kill and resume at the 2-layer cut;
-    * the launcher, ``python -m repro_torch.launch.train``."""
+    * kill and resume at the 2-layer cut.
+
+    The launcher, ``python -m repro_torch.launch.train``, runs beside
+    the serve launcher's runs in the ``launch`` phase."""
     from repro_torch.configs.registry import (get_config, get_smoke_config,
                                               list_archs)
     from repro_torch.data import SyntheticLMData
@@ -3231,16 +3382,14 @@ def phase_train(torch) -> None:
             torch, small, init_params(small, 0, device="cpu"),
             train_batch(small, np.random.default_rng(0), 2, 24), arch))
     resume = kill_and_resume(torch, dataclasses.replace(cfg, n_layers=2))
-    launcher = train_launcher()
     log("train", sgd_first_step=sgd, grad_holds=holds,
-        kill_and_resume=resume, launcher=launcher,
-        phase_s=time.perf_counter() - t0)
+        kill_and_resume=resume, phase_s=time.perf_counter() - t0)
     checks = dict(
         finite=all(np.isfinite(r["losses"]).all() for r in runs),
         memory=all(r["max_memory_allocated_gib"] < TRAIN_PEAK_GIB
                    for r in runs),
         sgd=sgd["ok"], grads=all(h["ok"] for h in holds),
-        resume=resume["ok"], launcher=launcher["ok"])
+        resume=resume["ok"])
     if not all(checks.values()):
         raise RuntimeError(f"train failed its checks: {checks}")
 
@@ -3360,7 +3509,8 @@ def phase_stream(torch, params):
 
 SCENARIO_CATALOG = dict(n=20_000, dim=100, seed=1)   # the stream's
 SCENARIO_BUDGET = 448                                # the engine's K
-SCENARIO_REQUESTS, SCENARIO_BATCH, SCENARIO_SEQ = 4096, 256, 128
+# requests a strategy, in batches of 256
+SCENARIO_REQUESTS, SCENARIO_BATCH, SCENARIO_SEQ = 2048, 256, 128
 
 
 def rescaled_catalog(net, n: int, dim: int, seed: int):
@@ -3380,7 +3530,7 @@ def phase_scenario(torch, params):
     centrality, 4 ingresses) on the stream's catalog rescaled by the
     reference bench's rule: GREEDY on the device (kernel C in ⌈37/8⌉ = 5
     groups a call; C then held against its plain version at the seed's
-    inputs, outside the counted run), then 4,096 requests in batches of
+    inputs, outside the counted run), then 2,048 requests in batches of
     256 through the engine's strategy plane for each of the five
     strategies, misses prefilled through kernel E. Counts are zeroed
     before each run and read after it."""
@@ -3488,7 +3638,9 @@ def phase_gain_quant(torch) -> dict:
     kernel C) against kernel C's exact gains — never below them, less
     their C_a tolerance (``gain_tolerance``) and 1e-4 relative for the
     f32 sums — and ``device_greedy(quantize=True)`` bitwise the
-    exact-seeded allocation; both timed, kernel C's launches counted."""
+    exact-seeded allocation; both timed, kernel C's launches counted.
+    Returns the kernels line's entry and the exact GREEDY's slots and
+    seconds."""
     from repro_torch.core import catalog as catalog_api
     from repro_torch.core import demand as demand_api
     from repro_torch.core import topology
@@ -3536,12 +3688,14 @@ def phase_gain_quant(torch) -> dict:
               greedy["exact"]["launches"] > 0]
     if not all(checks):
         raise RuntimeError(f"gain_quant phase failed its checks: {checks}")
-    return dict(name="_lb_gains_tiles",
+    lb_gains = dict(name="_lb_gains_tiles",
                 replaces="src/repro/kernels/knn/gains.py:170",
                 shape=dict(R=cat.n, O=cat.n, D=cat.dim, I=1, J=3),
                 ms=times["quantized_ms"],
                 exact_path="placement_gains (C), R = O = 20,000",
                 exact_ms=times["exact_ms"])
+    # the exact GREEDY is the unsharded one of ``sharded_control``
+    return lb_gains, greedy["exact"]
 
 
 # the sharded phase: shard counts of the data plane on bigcache's network
@@ -3737,7 +3891,7 @@ def phase_sharded_lookup(torch, big, plane) -> dict:
     return dict(launches=launches, hold=res["shard_local_hold"])
 
 
-def phase_sharded_control(torch, cat, dem) -> dict:
+def phase_sharded_control(torch, cat, dem, greedy_exact) -> dict:
     """Item 11's control plane on one card, each call's launches counted
     alone: the candidate-sharded gain oracle (kernel C once per shard and
     group of 8 caches) at the stream's catalog (R = O = 20,000, D 100,
@@ -3746,7 +3900,9 @@ def phase_sharded_control(torch, cat, dem) -> dict:
     on a 4-shard streaming ``DeviceInstance`` bitwise the unsharded
     allocation; the best-two tables at 10⁵ objects and K 448 at n = 4,
     and a ``best_two_delta`` forced into its (sharded) full rebuild,
-    bitwise; the sharded and unsharded calls timed side by side."""
+    bitwise; the sharded and unsharded calls timed side by side. The
+    unsharded GREEDY is ``gain_quant``'s exact run on the same instance
+    (``greedy_exact``: its slots and seconds)."""
     from repro_torch.core import catalog as catalog_api
     from repro_torch.core import demand as demand_api
     from repro_torch.core import scenarios, topology
@@ -3797,9 +3953,8 @@ def phase_sharded_control(torch, cat, dem) -> dict:
             greedy_s = time.perf_counter() - t
             greedy_c = launch_counts()["placement_gains"]
             launches += greedy_c
-            t = time.perf_counter()
-            slots_u = device_greedy(d)
-            greedy_u = time.perf_counter() - t
+            slots_u = greedy_exact["slots"]
+            greedy_u = greedy_exact["seconds"]
             greedy = dict(bitwise_equal=bool(np.array_equal(slots_s,
                                                             slots_u)),
                           seconds=greedy_s, unsharded_seconds=greedy_u,
@@ -3920,7 +4075,9 @@ def phase_sharded_engine(torch, params, stream) -> dict:
 
 HITRATE_REQUESTS = 40_000
 SURROGATE_OBJECTS = (100_000, 1_000_000)
-SURROGATE_CALLS = 5
+# timed surrogate calls a size: one takes ~3 s at 10⁶ objects on an
+# H100, and two show the cost repeats bitwise
+SURROGATE_CALLS = 2
 
 
 def surrogate_breakdown(torch, net, lam) -> dict:
@@ -3928,12 +4085,12 @@ def surrogate_breakdown(torch, net, lam) -> dict:
     torch.profiler (the device's kernel and copy time, launches, and the
     idle share of the call's wall time), then a call with the solve and
     the pass each timed to the end of their device work (the rest is
-    the host's f64 composition)."""
+    the host's f64 composition). The caller's timed calls warmed it
+    up."""
     import collections
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.analysis import hitrate, surrogate_cost
-    surrogate_cost(net, lam)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4215,7 +4372,9 @@ def phase_gate(torch, params):
     let through are counted. Every surrogate call is timed and logged
     with its stage and, for a cadence call, |surrogate − baseline| and
     its margin to the gate (gate − |Δ|: positive skips); launches are
-    counted over the phase."""
+    counted over the phase. Its solves are GREEDY alone: what the phase
+    holds is the gate, and the ``stream`` phase runs the cascade on the
+    same catalog."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import catalog as catalog_api
     from repro_torch.core import demand as demand_api
@@ -4227,7 +4386,7 @@ def phase_gate(torch, params):
                               use_flash_attention=True)
     cat = catalog_api.embedding_catalog(**SCENARIO_CATALOG)
     ecfg = EngineConfig(h_ici=15.0, h_dcn=150.0, h_model=1000.0,
-                        refresh_min_gain=GATE_MIN_GAIN)
+                        refresh_min_gain=GATE_MIN_GAIN, algo="greedy")
     eng = SimCacheEngine(cfg, params, ecfg, cat.coords)
     calls = []
     stage = ["probe"]
@@ -4608,6 +4767,183 @@ def phase_mesh(torch, params, clock_hz: float) -> dict:
                 e_hold=parts["prefill"]["e_hold"])
 
 
+# the kernels each example's path must launch (netduel_online's GREEDY
+# yardstick folds its 900-object instance's materialized C_a in torch,
+# as the reference does, so C is not on its path; train_lm launches
+# none: E has no backward, so its model runs plain attention)
+EXAMPLE_KERNELS = {
+    "netduel_online": ("duel_scan", "duel_rearm"),
+    "serve_simcache": ("fused_lookup", "placement_gains"),
+    "streaming_serve": ("fused_lookup", "placement_gains", "duel_scan"),
+    "train_lm": ()}
+
+
+def load_example(name: str):
+    """An example twin (``examples/<name>_torch.py``) loaded from its
+    file."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(train_steps: int = 30) -> dict:
+    """The examples' twins (item 17) in this process on the card, as a
+    user runs them, each at its reference example's sizes: netduel_online
+    (two 40,000-request ``device_netduel`` windows through F, the host
+    NumPy replay asserted equal by the example itself), serve_simcache
+    (the ~5M-parameter granite behind ``SimCacheEngine``: ``calibrate()``,
+    8 cold and 8 warm batches of 16, the cascade through C, warm lookups
+    through A), streaming_serve (4 streams, NETDUEL on F,
+    ``refresh_on_promotion``, two 600-request phases and the drift) and
+    train_lm at ``train_steps`` steps (the ~100M granite-family model, a
+    crash at two thirds and a resume). Each run's launch counts are
+    zeroed just before it and read just after; every kernel of
+    ``EXAMPLE_KERNELS`` must have launched.
+
+    Holds of the kernels, after each run and outside its counts: in
+    serve_simcache and streaming_serve every call of A (its inputs and
+    outputs captured, cloned) against its plain version
+    (:func:`hold_captured_a`) and every exact call of C against its own
+    (:func:`hold_captured_c`), as many calls held as launches counted;
+    in streaming_serve every duel plane the engine armed replayed on the
+    plain scan and on F, bitwise, each re-arm held against the torch
+    re-arm (:func:`hold_duel_planes`), as many scans and re-arms replayed
+    as launched; in netduel_online the host replay (the example raises
+    otherwise). Holds of what the examples promise: the adaptation
+    (C(A_new | λ2) below C(A_old | λ2)); the warm hit rate above 0 and
+    the mean cost below ``h_model``, 128 requests a phase, 8 cold model
+    calls; 600 / 15 requests and batches in each streaming phase (the
+    reference example's counts), a background swap, no refresh in flight,
+    hits after the drift; finite losses, and a resume from the step of
+    the crash's checkpoint to the last step. Each example's printout is
+    kept in the phase's line."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t0 = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    keep_a = lambda a, kw, out: (cloned(torch, a), dict(kw),  # noqa: E731
+                                 cloned(torch, out))
+    runs, checks = {}, {}
+    for name, call in (
+            ("netduel_online", lambda m: m.run()),
+            ("serve_simcache", lambda m: m.run()),
+            ("streaming_serve", lambda m: m.run()),
+            ("train_lm", lambda m: m.run(steps=train_steps, ckpt=ckpt))):
+        mod = load_example(name)
+        text = io.StringIO()
+        with contextlib.ExitStack() as stack:
+            cap = recorder = None
+            if name in ("serve_simcache", "streaming_serve"):
+                cap = stack.enter_context(
+                    captured(a_targets(keep_a) + c_targets(torch)))
+            if name == "streaming_serve":
+                recorder = stack.enter_context(duel_recorder())
+            stack.enter_context(contextlib.redirect_stdout(text))
+            reset_launch_counts()
+            t = time.perf_counter()
+            out = call(mod)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            seconds = time.perf_counter() - t
+        launched = {k: counts[k] for k in ("fused_lookup", "placement_gains",
+                                           "duel_scan", "duel_rearm")}
+        held, kernels_held = [], {}
+        if cap is not None:
+            a_held = hold_captured_a(torch, cap.calls)
+            c_held = hold_captured_c(torch, cap.calls)
+            kernels_held.update(
+                A=dict(calls=len(a_held),
+                       shapes=sorted({(h["Q"], h["K"], h["D"])
+                                      for h in a_held}),
+                       max_abs_err=max((h["max_abs_err"] for h in a_held),
+                                       default=None),
+                       index_near_tie=sum(h["index_near_tie"]
+                                          for h in a_held),
+                       ok=all(h["ok"] for h in a_held)),
+                C=[dict(h) for h in c_held])
+            held += [len(a_held) == launched["fused_lookup"],
+                     all(h["ok"] for h in a_held),
+                     sum(h["launches"] for h in c_held)
+                     == launched["placement_gains"],
+                     all(h["ok"] for h in c_held)]
+        if recorder is not None:
+            f_held = hold_duel_planes(torch, recorder.planes,
+                                      out["engine"].ecfg)
+            n_batches = sum(h["batches"] for h in f_held)
+            n_scans = sum(h["scan_launches"] for h in f_held)
+            n_rearms = sum(h["rearms_held"]["calls"] for h in f_held)
+            kernels_held["F"] = dict(planes=f_held, batches=n_batches,
+                                     scans=n_scans, rearms=n_rearms)
+            held += [n_batches > 0, duel_held_ok(f_held),
+                     n_scans == launched["duel_scan"],
+                     n_rearms == launched["duel_rearm"]]
+        if name == "netduel_online":
+            held += [out["c2"] < out["c_old"]]
+            res = {k: out[k] for k in ("c1", "ref1", "c_old", "c2", "ref2",
+                                       "n_promotions1", "n_promotions2")}
+        elif name == "serve_simcache":
+            cold, warm = out["cold"], out["warm"]
+            held += [warm.hit_rate > 0, warm.mean_cost < out["h_model"],
+                     cold.n_requests == warm.n_requests == 128,
+                     cold.model_calls == 8]
+            res = dict(h_model=out["h_model"], predicted=out["predicted"],
+                       **{f"{tag}_{k}": getattr(st, k)
+                          for tag, st in (("cold", cold), ("warm", warm))
+                          for k in ("hit_rate", "mean_cost",
+                                    "model_calls")})
+        elif name == "streaming_serve":
+            eng = out["engine"]
+            st = [out["phase1"], out["phase2"]]
+            held += [[(s.n_requests, s.n_batches) for s in st]
+                     == [(600, 15), (600, 15)],
+                     eng.swap_count >= 1, not eng.refresh_in_flight,
+                     eng.stats.n_hits > 0]
+            res = dict(predicted=out["predicted"],
+                       hit_rate_after_drift=eng.stats.hit_rate,
+                       swaps=eng.swap_count, refreshes=eng.refresh_count,
+                       phases=[dict(requests=s.n_requests,
+                                    batches=s.n_batches,
+                                    sizes=s.distinct_batch_sizes,
+                                    req_per_s=s.requests_per_s,
+                                    p50_ms=s.p50_ms, p99_ms=s.p99_ms,
+                                    placement_events=s.placement_events)
+                               for s in st])
+        else:
+            losses = out["losses"]
+            held += [bool(np.isfinite(losses).all()),
+                     len(losses) == train_steps,
+                     out["first"]["step"] == out["crash_at"],
+                     f"resumed from step {out['crash_at']}"
+                     in text.getvalue(),
+                     out["resumed"]["step"] == train_steps]
+            res = dict(steps=train_steps, crash_at=out["crash_at"],
+                       first_loss=losses[0], last_loss=losses[-1],
+                       step_ms_p50=float(np.median(
+                           out["first"]["step_ms"]
+                           + out["resumed"]["step_ms"])))
+        held += [launched[k] > 0 for k in EXAMPLE_KERNELS[name]]
+        runs[name] = dict(res, launches=launched, seconds=seconds,
+                          held_against_plain=kernels_held, holds=held,
+                          printed=text.getvalue().splitlines()[-12:])
+        checks[name] = all(held)
+    log("examples", **runs, phase_s=time.perf_counter() - t0)
+    if not all(checks.values()):
+        raise RuntimeError(f"examples failed their checks: {checks}")
+    total: dict = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def phase_launch():
     """The command-line entry point, as a user runs it, in a subprocess
     of its own (its kernel launches are its own, counted nowhere): the
@@ -4616,10 +4952,11 @@ def phase_launch():
     ``--scenario scale_free --strategy lce`` in both loops, whose
     printout must name the scenario, and the batch loop with
     ``--arch jamba-1.5-large-398b`` (its smoke config: the engine's
-    repository runs attention, Mamba and MoE layers). The seven runs
-    are started together and share the card (each run's ``seconds``
-    is its time from the common start to its exit); each has its own
-    600 s limit, and every one is waited for before a failure raises."""
+    repository runs attention, Mamba and MoE layers); beside them the
+    train launcher (:func:`train_launcher`). The eight runs are started
+    together and share the card (each serve run's ``seconds`` is its
+    time from the common start to its exit); each has its own 600 s
+    limit, and every one is waited for before a failure raises."""
     import os
     from concurrent.futures import ThreadPoolExecutor
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -4647,8 +4984,10 @@ def phase_launch():
             rc, stdout, stderr = "timeout", "", "killed after 600 s"
         return rc, stdout, stderr, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(extras)) as pool:
+    with ThreadPoolExecutor(len(extras) + 1) as pool:
+        trained = pool.submit(train_launcher)
         results = list(pool.map(run, extras))
+        train = trained.result()
     runs, failed = [], None
     for extra, (rc, stdout, stderr, seconds) in zip(extras, results):
         lines = [ln for ln in stdout.splitlines() if ln.startswith("[serve]")]
@@ -4664,10 +5003,14 @@ def phase_launch():
         if failed is None and (rc != 0 or final is None or not churn
                                or not named):
             failed = (extra, stderr[-3000:])
+    if failed is None and not train["ok"]:
+        failed = (["repro_torch.launch.train"], train["stderr_tail"])
     if failed:
-        log("launch", runs=runs, stderr_tail=failed[1])
+        log("launch", runs=runs, train_launcher=train,
+            stderr_tail=failed[1])
         raise RuntimeError(f"the launcher failed: {' '.join(failed[0])}")
-    log("launch", runs=runs, phase_s=time.perf_counter() - t0)
+    log("launch", runs=runs, train_launcher=train,
+        phase_s=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -4732,8 +5075,9 @@ def main() -> int:
     del stream
     duel_counts = phase_duel_engine(torch, params)
     scenario_counts = phase_scenario(torch, params)
-    lb_gains = phase_gain_quant(torch)
-    sharded_control = phase_sharded_control(torch, cat, dem)
+    lb_gains, greedy_exact = phase_gain_quant(torch)
+    sharded_control = phase_sharded_control(torch, cat, dem, greedy_exact)
+    del greedy_exact
     cand_ca = phase_hitrate(torch)
     gate_counts = phase_gate(torch, params)
     mesh = phase_mesh(torch, params, clock_hz)
@@ -4744,6 +5088,7 @@ def main() -> int:
     family_counts = phase_families(torch, clock_hz)
     phase_train(torch)
     phase_launch()
+    example_counts = phase_examples()
     counts["greedy_gain"] = d["launches"]         # its entry point's run
     counts["flash_attention"] = stream_counts["flash_attention"]
     counts["duel_scan"] = duel_counts["duel_scan"]  # the online plane's run
@@ -4804,6 +5149,8 @@ def main() -> int:
             kernels[-1]["mesh_hold"] = {
                 k: mesh["e_hold"][k] for k in ("B", "S", "H", "KH", "Dh")
                 + E_FIELDS + ("max_abs_err", "share_of_bound")}
+        if r["name"] in example_counts:          # the examples' twins
+            kernels[-1]["launches_examples"] = example_counts[r["name"]]
         if r["name"] in gate_counts:             # the gated stream engine
             kernels[-1]["launches_gate"] = gate_counts[r["name"]]
         if r["name"] in shapes:        # A, B: K 448, 65,536; C: O 10⁵, 2e4

@@ -21,11 +21,12 @@ compiler, so each of the record's terms comes from its own pass:
   tensors: the collectives are recorded, never sent), under
   ``CommDebugMode``; each collective is priced by
   ``roofline._ring_bytes`` from its output's bytes and its group's
-  size. Where a family's step meets a DTensor op without a sharding
-  rule, or reads a value on the host, the record holds ``"collectives":
-  null`` and names the op (``collectives_error``); a cell whose FLOPs
-  cannot be counted on meta says so in the same way and keeps the
-  analytic FLOPs.
+  size. The run goes through :func:`dtensor_seam`, the one place the
+  dry run touches torch's internals, which also runs the ops DTensor
+  has no strategy for shard by shard. Where a step still fails, the
+  record holds ``"collectives": null`` and names the op
+  (``collectives_error``); a cell whose FLOPs cannot be counted on meta
+  says so in the same way and keeps the analytic FLOPs.
 
 Records go to ``results/dryrun_torch/<arch>__<shape>__<mesh>.json``
 (resumable: existing cells are skipped unless ``--force``).
@@ -110,6 +111,51 @@ def count_flops(c: Cell) -> float:
 
 
 # ------------------------------------------------------------ collectives
+# The dry run's one seam with torch's internals. torch moves them between
+# releases (the build box runs 2.13, the card's machine 2.11), so each
+# is named here; ``seam_missing`` lists those this torch lacks, and
+# ``dtensor_seam`` refuses to start without them.
+SEAM_INTERNALS = (
+    # the fake process group's store: collectives recorded, never sent
+    "torch.testing._internal.distributed.fake_pg.FakeStore",
+    # DTensor's shard-to-shard move, swapped for the all-to-all op
+    "torch.distributed.tensor._collective_utils.shard_dim_alltoall",
+    "torch.ops._dtensor.shard_dim_alltoall",
+    "torch.distributed._functional_collectives._resolve_group_name",
+    # a collective's group, for its size in the ring model
+    "torch.distributed.distributed_c10d._resolve_process_group",
+    # Replicate → Partial(sum), kept exact for integer tensors
+    "torch.distributed.tensor.placement_types.Partial._partition_value",
+)
+# DTensor's errors for a view it will not run on a split dimension, from
+# which the uneven-view fix reads the mesh dimension to replicate: torch
+# 2.13 names it (the split does not unflatten evenly), torch 2.11 names
+# the tensor dimension (it splits or flattens no sharded dimension in a
+# view)
+UNEVEN_VIEW_ERROR = r"evenly divisible by mesh dimension (\d+)"
+SHARDED_VIEW_ERROR = r"sharded dimension (\d+)|dimension (\d+) being sharded"
+
+
+def seam_missing() -> list[str]:
+    """The names of ``SEAM_INTERNALS`` this torch does not have."""
+    import importlib
+    missing = []
+    for path in SEAM_INTERNALS:
+        parts = path.split(".")
+        for i in range(len(parts), 0, -1):     # the longest module prefix
+            try:
+                obj = importlib.import_module(".".join(parts[:i]))
+                break
+            except ImportError:
+                continue
+        try:
+            for name in parts[i:]:
+                obj = getattr(obj, name)
+        except AttributeError:
+            missing.append(path)
+    return missing
+
+
 @contextlib.contextmanager
 def fake_world(n_ranks: int):
     """A fake process group of ``n_ranks`` ranks (this process is rank 0):
@@ -126,6 +172,47 @@ def fake_world(n_ranks: int):
         yield
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def dtensor_seam(n_ranks: int):
+    """Everything the dry run changes in torch to count a DTensor step,
+    in one block: a fake process group of ``n_ranks`` ranks
+    (:func:`fake_world`), inside which it yields ``step(counter)``, a
+    context manager for the step itself. ``step`` enters, in this
+    order (the first outermost, so ``counter`` also sees the
+    collectives the others issue):
+
+    * ``counter``, a ``CommDebugMode`` (:func:`_collective_counter`);
+    * the uneven-view fix (:func:`_uneven_view_fix`; it reads
+      ``UNEVEN_VIEW_ERROR`` or ``SHARDED_VIEW_ERROR``);
+    * the local ops (:func:`_local_ops`: ``gather`` and
+      ``log_sigmoid_backward`` shard by shard where DTensor has no
+      strategy for them);
+    * ``implicit_replication`` (a plain tensor counts as replicated);
+    * the all-to-all swap (:func:`_alltoall_on_cpu_mesh`);
+    * exact integer partials (:func:`_exact_integer_partial`).
+
+    Nothing is registered with DTensor: the modes end with the block,
+    and each patched attribute is put back as it was, so DTensor
+    behaves afterwards exactly as before. Raises ``RuntimeError``
+    naming the internals of ``SEAM_INTERNALS`` this torch lacks."""
+    missing = seam_missing()
+    if missing:
+        raise RuntimeError(
+            f"torch {torch.__version__} lacks internals the dry run's "
+            f"DTensor seam uses (launch/dryrun.py, SEAM_INTERNALS): "
+            + ", ".join(missing))
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    @contextlib.contextmanager
+    def step(counter):
+        with counter, _uneven_view_fix(), _local_ops(), \
+                implicit_replication(), _alltoall_on_cpu_mesh(), \
+                _exact_integer_partial():
+            yield
+    with fake_world(n_ranks):
+        yield step
 
 
 def _collective_counter():
@@ -152,6 +239,24 @@ def _collective_counter():
     return CollectiveCounter()
 
 
+def view_error_mesh_dim(text: str, placements) -> int | None:
+    """The mesh dimension a view's DTensor error asks to replicate (the
+    last one that splits the named tensor dimension, where the error
+    names a tensor dimension), or None where the text is neither of
+    ``UNEVEN_VIEW_ERROR`` and ``SHARDED_VIEW_ERROR``."""
+    import re
+    m = re.search(UNEVEN_VIEW_ERROR, text)
+    if m is not None:
+        return int(m.group(1))
+    m = re.search(SHARDED_VIEW_ERROR, text)
+    if m is None:
+        return None
+    d = int(next(g for g in m.groups() if g is not None))
+    dims = [i for i, p in enumerate(placements)
+            if getattr(p, "dim", None) == d]
+    return dims[-1] if dims else None
+
+
 def _uneven_view_fix():
     """A dispatch mode that lets a view run where DTensor's strategy has
     left it impossible: DTensor may split a flattened dimension (a
@@ -159,9 +264,9 @@ def _uneven_view_fix():
     weight because chunking costs nothing) that then does not unflatten
     evenly (fewer KV heads than the model axis). The view's input is
     then replicated on that mesh dimension first — an all-gather, which
-    the count includes, as the DTensor run issues it."""
-    import re
-
+    the count includes, as the DTensor run issues it. (torch 2.11 runs no
+    view that splits or flattens a sharded dimension; the same fix
+    replicates it first there.)"""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.utils._python_dispatch import TorchDispatchMode
     views = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
@@ -176,15 +281,74 @@ def _uneven_view_fix():
                 try:
                     return func(x, *args[1:], **kwargs)
                 except RuntimeError as e:
-                    m = re.search(r"evenly divisible by mesh dimension "
-                                  r"(\d+)", str(e))
                     placements = list(x.placements)
-                    if m is None or isinstance(
-                            placements[int(m.group(1))], Replicate):
+                    dim = view_error_mesh_dim(str(e), placements)
+                    if dim is None or isinstance(placements[dim],
+                                                 Replicate):
                         raise
-                    placements[int(m.group(1))] = Replicate()
+                    placements[dim] = Replicate()
                     x = x.redistribute(x.device_mesh, placements)
     return UnevenViewFix()
+
+
+def _local_ops():
+    """A dispatch mode that runs two ops shard by shard (a ``local_map``
+    with the inputs' own placements) where DTensor has no strategy:
+
+    * ``aten.gather`` whose input and index are laid out alike and not
+      split on the gathered dimension: the loss's label gather under
+      ``ffn_mode="dp"``, whose logits' rows DTensor splits as a
+      ``_StridedShard`` (its own rule has no such case, and pricing its
+      mask-partial case raises). No collective, as a gather row by row
+      needs none.
+    * ``aten.log_sigmoid_backward`` (the gradient of xlstm's
+      ``F.logsigmoid`` gates; DTensor registers no rule): pointwise, so
+      the gradient (and the buffer, where it is not empty) first moves
+      to ``self``'s placements — a collective DTensor would issue as
+      well, which the count includes.
+
+    Every other call goes on to DTensor."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+
+    def plain(placements) -> bool:
+        """Each mesh dimension replicates or splits one tensor dim."""
+        return all(p.is_replicate() or hasattr(p, "dim")
+                   for p in placements)
+
+    def wrap(out, like: DTensor, shape):
+        return DTensor.from_local(
+            out, like.device_mesh, like.placements, run_check=False,
+            shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+
+    class LocalOps(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is aten.gather.default:
+                x, dim, index = args[:3]
+                if (isinstance(x, DTensor) and isinstance(index, DTensor)
+                        and x.placements == index.placements
+                        and plain(x.placements)
+                        and all(getattr(p, "dim", None) != dim % x.ndim
+                                for p in x.placements)):
+                    out = func(x.to_local(), dim, index.to_local(),
+                               *args[3:], **kwargs)
+                    return wrap(out, index, index.shape)
+            if func is aten.log_sigmoid_backward.default:
+                grad, x, buf = args
+                if (isinstance(x, DTensor) and isinstance(grad, DTensor)
+                        and isinstance(buf, DTensor)
+                        and plain(x.placements)):
+                    mesh, pl = x.device_mesh, x.placements
+                    buf = (buf.redistribute(mesh, pl)
+                           if buf.shape == x.shape else buf)
+                    out = func(grad.redistribute(mesh, pl).to_local(),
+                               x.to_local(), buf.to_local())
+                    return wrap(out, x, x.shape)
+            return func(*args, **kwargs)
+    return LocalOps()
 
 
 @contextlib.contextmanager
@@ -198,9 +362,9 @@ def _alltoall_on_cpu_mesh():
     from torch.distributed.tensor import _collective_utils, placement_types
 
     def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
-        group = funcol._resolve_group((mesh, mesh_dim))
         return torch.ops._dtensor.shard_dim_alltoall(
-            input, gather_dim, shard_dim, funcol._group_or_group_name(group))
+            input, gather_dim, shard_dim,
+            funcol._resolve_group_name((mesh, mesh_dim)))
     saved = [(m, m.shard_dim_alltoall)
              for m in (_collective_utils, placement_types)
              if hasattr(m, "shard_dim_alltoall")]
@@ -213,6 +377,36 @@ def _alltoall_on_cpu_mesh():
             m.shard_dim_alltoall = fn
 
 
+@contextlib.contextmanager
+def _exact_integer_partial():
+    """DTensor turns a replicated tensor into a ``Partial(sum)`` one by
+    dividing it by the mesh dimension's size, which makes an integer
+    tensor float: in the MoE decode, ``counts + mask_k.sum(-2)`` of
+    ``models/moe.py::_positions_in_expert`` comes out float, and the
+    ``F.one_hot`` that reads the positions refuses it. Inside this
+    block an integer tensor is split as its value on the mesh
+    dimension's first coordinate and zeros on the others: the same sum,
+    exact, in its own dtype. Neither form sends a collective."""
+    from torch.distributed.tensor.placement_types import Partial
+    own = "_partition_value" in vars(Partial)
+    partition = Partial._partition_value
+
+    def exact(self, tensor, mesh, mesh_dim):
+        if (self.reduce_op != "sum" or tensor.is_floating_point()
+                or tensor.is_complex() or tensor.dtype == torch.bool):
+            return partition(self, tensor, mesh, mesh_dim)
+        return tensor if mesh.get_local_rank(mesh_dim) == 0 \
+            else torch.zeros_like(tensor)
+    Partial._partition_value = exact
+    try:
+        yield
+    finally:
+        if own:
+            Partial._partition_value = partition
+        else:
+            del Partial._partition_value
+
+
 def count_collectives(c: Cell) -> dict:
     """The collectives of one run of the cell's step on DTensors over a
     fake process group of the mesh's size, priced by the ring model:
@@ -220,16 +414,14 @@ def count_collectives(c: Cell) -> dict:
     ``parse_collectives`` keys) and ``comm_counts``, CommDebugMode's
     count by functional op."""
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor.experimental import implicit_replication
     mesh = c.mesh
-    with fake_world(count_devices(mesh)):
+    with dtensor_seam(count_devices(mesh)) as step:
         device_mesh = init_device_mesh("cpu", tuple(mesh.sizes),
                                        mesh_dim_names=mesh.axis_names)
         model = c.model(device_mesh)
         args = c.step_args(model, device_mesh)
         counter = _collective_counter()
-        with counter, _uneven_view_fix(), implicit_replication(), \
-                _alltoall_on_cpu_mesh():
+        with step(counter):
             c.fn(model, *args)
     per_op: dict = {}
     counts: dict = {}

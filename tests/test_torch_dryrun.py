@@ -9,17 +9,26 @@ launch/reanalyze.py) at smoke size.
   run on CPU tensors.
 * A smoke cell's step on DTensors over a fake 8-rank process group
   issues collectives, counted by CommDebugMode and priced by the ring
-  model; a redistribution of known size is priced exactly.
+  model; a redistribution of known size is priced exactly. So do the
+  three steps DTensor cannot run unaided (the MoE decode at the
+  production routing, xlstm's train step, ``ffn_mode="dp"``), through
+  the dry run's seam (``dryrun.dtensor_seam``), which names every torch
+  internal it uses and leaves DTensor as it found it.
 * ``reanalyze`` recomputes a stored record's roofline to the value it
   had; the command line writes a skipped record for an unsupported cell.
 """
+import dataclasses
 import json
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard, \
+    distribute_tensor
 
-from repro_torch.configs.registry import get_smoke_config
+from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.data import SyntheticLMData
 from repro_torch.launch import dryrun, reanalyze, roofline
 from repro_torch.launch import specs as tspecs
@@ -28,20 +37,11 @@ from repro_torch.launch.sharding import local_shard
 from repro_torch.models import convert
 from repro_torch.models.model import init_params
 from repro_torch.optim import AdamWConfig, adamw_init
+from torch_threads import one_thread  # noqa: F401
 
 ONE = ShardMesh(("data", "model"), (1, 1))
 FOUR_TWO = ShardMesh(("data", "model"), (4, 2))
 TWO_FOUR = ShardMesh(("data", "model"), (2, 4))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """torch's CPU ops on one thread (many small ops; beside the suite's
-    other workers intra-op threads oversubscribe the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def nbytes(tree) -> int:
@@ -128,42 +128,153 @@ def test_smoke_cell_on_a_fake_eight_rank_group(kind, mesh):
     assert set(m["seconds"]) == {"memory", "flops", "collectives"}
 
 
-@pytest.mark.parametrize("kind,knob,untraced", [
-    ("prefill", dict(seq_shard=True), None),
-    ("train", dict(ffn_mode="dp"), "aten.gather"),
-    ("train", dict(ffn_mode="dp_batch"), None),
-    ("train", dict(attn_override="batch"), None),
-    ("decode", dict(serve_fsdp=False), None),
-    ("train", dict(bf16_flows=True), None)],
+def moe_routing_cfg():
+    """granite-moe's smoke widths with its production routing (top 8 of
+    40 experts, capacity 1.25): from the third choice on, the expert
+    counts of ``moe._positions_in_expert`` add a replicated and a
+    partial integer tensor, which DTensor alone makes float (the
+    production MoE decode's null term before the seam)."""
+    full = get_config("granite-moe-3b-a800m")
+    return dataclasses.replace(
+        get_smoke_config("granite-moe-3b-a800m"),
+        moe_experts=full.moe_experts, moe_topk=full.moe_topk,
+        capacity_factor=full.capacity_factor)
+
+
+@pytest.mark.parametrize("arch,kind", [("granite-moe-3b-a800m", "decode"),
+                                       ("xlstm-350m", "train")],
+                         ids=["moe_decode", "xlstm_train"])
+def test_steps_dtensor_cannot_run_alone_are_counted(arch, kind):
+    """The MoE decode (the seam's exact integer partials) and xlstm's
+    train step (its local ``log_sigmoid_backward``; one super-block of an
+    mLSTM and an sLSTM layer, ``slstm_every=2``: both mixers at a
+    quarter of the smoke super-block's eight layers) have a collective
+    term, CommDebugMode's count equal to the ring model's."""
+    cfg = moe_routing_cfg() if kind == "decode" else \
+        dataclasses.replace(get_smoke_config(arch), n_layers=2,
+                            slstm_every=2)
+    m = dryrun.measure_cell(cfg, tspecs.ShapeCell("smoke", 16, 8, kind),
+                            FOUR_TWO, dryrun.opt_for(cfg))
+    coll = m["collectives"]
+    assert coll is not None, m.get("collectives_error")
+    assert coll["bytes_per_device"] > 0
+    assert sum(coll["counts"].values()) == \
+        sum(coll["comm_counts"].values())
+    assert coll["bytes_per_device"] == pytest.approx(
+        sum(coll["per_op_bytes"].values()), rel=1e-12)
+
+
+def test_seam_names_the_torch_internals_it_uses(monkeypatch):
+    """Fails, naming them, where this torch has moved an internal of the
+    dry run's seam, or reworded the view errors it reads."""
+    missing = dryrun.seam_missing()
+    assert not missing, (
+        f"torch {torch.__version__} moved internals the dry run uses "
+        f"(launch/dryrun.py, SEAM_INTERNALS): {missing}")
+    with dryrun.dtensor_seam(8) as step:
+        mesh = init_device_mesh("cpu", (2, 4),
+                                mesh_dim_names=("data", "model"))
+        x = distribute_tensor(torch.empty(2, 8, device="meta"), mesh,
+                              [Replicate(), Shard(1)])
+        with pytest.raises(RuntimeError) as err:
+            x.view(2, 2, 4)
+        assert dryrun.view_error_mesh_dim(str(err.value),
+                                          x.placements) == 1, (
+            "DTensor's error for a view of a split dimension matches "
+            "neither dryrun.UNEVEN_VIEW_ERROR nor SHARDED_VIEW_ERROR: "
+            f"{err.value}")
+        counter = dryrun._collective_counter()
+        with step(counter):
+            y = x.view(2, 2, 4)              # replicated first
+        assert tuple(y.placements) == (Replicate(), Replicate())
+        assert [r[0] for r in counter.records] == ["all-gather"]
+    monkeypatch.setattr(dryrun, "SEAM_INTERNALS", dryrun.SEAM_INTERNALS
+                        + ("torch.distributed.tensor.no_such_internal",))
+    with pytest.raises(RuntimeError, match="no_such_internal"):
+        with dryrun.dtensor_seam(8):
+            pass
+
+
+def expert_counts_one_hot():
+    """``F.one_hot`` of the MoE's expert-count pattern on DTensors (a
+    replicated integer tensor plus a partial one): the output's dtype, or
+    the error."""
+    mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+    mask = DTensor.from_local(
+        torch.zeros(1, 2, 8, dtype=torch.long, device="meta"), mesh,
+        [Shard(1), Replicate()], run_check=False)
+    counts = 0 + mask.sum(-2)
+    counts = counts + mask.sum(-2)
+    try:
+        return str(F.one_hot(counts, 8).dtype)
+    except RuntimeError as e:
+        return str(e)
+
+
+def test_the_dry_run_leaves_dtensor_as_it_found_it():
+    """After a dry run, ``F.one_hot`` on DTensors behaves exactly as
+    before it, whatever DTensor alone does with the counts (torch 2.13
+    makes them float and refuses them), and nothing of the seam is left
+    in place: ``Partial``'s partition, DTensor's strategies for the ops
+    the seam runs, the dispatch modes."""
+    from torch.distributed.tensor.placement_types import Partial
+    prop = DTensor._op_dispatcher.sharding_propagator
+    ops = (torch.ops.aten.gather.default,
+           torch.ops.aten.log_sigmoid_backward.default,
+           torch.ops.aten.one_hot.default)
+    strategies = {op: prop.op_strategy_funcs.get(op) for op in ops}
+    partition = Partial._partition_value
+    with dryrun.fake_world(8):
+        before = expert_counts_one_hot()
+    m = dryrun.measure_cell(moe_routing_cfg(),
+                            tspecs.ShapeCell("smoke", 16, 8, "decode"),
+                            FOUR_TWO, dryrun.opt_for(moe_routing_cfg()))
+    assert m["collectives"] is not None, m.get("collectives_error")
+    with dryrun.fake_world(8):
+        after = expert_counts_one_hot()
+    assert after == before
+    with dryrun.dtensor_seam(8) as step:
+        with step(dryrun._collective_counter()):
+            assert expert_counts_one_hot() == "torch.int64"
+    assert Partial._partition_value is partition
+    assert {op: prop.op_strategy_funcs.get(op) for op in ops} == strategies
+    assert torch._C._len_torch_dispatch_stack() == 0
+
+
+@pytest.mark.parametrize("kind,knob", [
+    ("prefill", dict(seq_shard=True)),
+    ("train", dict(ffn_mode="dp")),
+    ("train", dict(ffn_mode="dp_batch")),
+    ("train", dict(attn_override="batch")),
+    ("decode", dict(serve_fsdp=False)),
+    ("train", dict(bf16_flows=True))],
     ids=["seq_shard", "dp", "dp_batch", "attn_batch", "no_serve_fsdp",
          "bf16_flows"])
-def test_policy_knobs_run_through_the_dry_run(kind, knob, untraced):
-    """Each knob's cell is counted; under ``ffn_mode="dp"`` the loss's
-    gather meets logits whose sequence is split over the model axis,
-    which DTensor has no rule for: the record names the op."""
+def test_policy_knobs_run_through_the_dry_run(kind, knob):
+    """Each knob's cell is counted. Under ``ffn_mode="dp"`` the loss's
+    gather meets logits whose rows DTensor splits as a ``_StridedShard``
+    over the model axis, which its gather rule has no case for: the
+    seam's local gather runs it row block by row block (no collective)."""
     cfg = get_smoke_config("granite-3-2b")
     m = dryrun.measure_cell(cfg, tspecs.ShapeCell("smoke", 16, 8, kind),
                             FOUR_TWO, dryrun.opt_for(cfg), **knob)
     assert m["flops_counted"] > 0
-    if untraced is None:
-        assert m["collectives"] is not None, m.get("collectives_error")
-    else:
-        assert m["collectives"] is None
-        assert untraced in m["collectives_error"]
+    coll = m["collectives"]
+    assert coll is not None, m.get("collectives_error")
+    assert sum(coll["counts"].values()) == \
+        sum(coll["comm_counts"].values()) > 0
 
 
 def test_collective_pricing_of_a_known_redistribution():
     """One all-gather of a (64, 64) f32 tensor split 4 ways on the data
     axis: 16 KiB out, 3/4 of it over the links."""
-    from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
-    with dryrun.fake_world(8):
+    with dryrun.dtensor_seam(8) as step:
         mesh = init_device_mesh("cpu", (4, 2),
                                 mesh_dim_names=("data", "model"))
         x = distribute_tensor(torch.empty(64, 64, device="meta"), mesh,
                               [Shard(0), Replicate()])
         counter = dryrun._collective_counter()
-        with counter, dryrun._alltoall_on_cpu_mesh():
+        with step(counter):
             x.redistribute(mesh, [Replicate(), Replicate()])
             x.redistribute(mesh, [Shard(1), Replicate()])
     assert counter.records == [("all-gather", 64 * 64 * 4, 4),

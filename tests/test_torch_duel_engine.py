@@ -44,6 +44,7 @@ from repro_torch.launch import serve as launch
 from repro_torch.models import model as model_api
 from repro_torch.serve import (EngineConfig, SimCacheEngine, StreamDriver,
                                StreamSpec)
+from torch_threads import one_thread  # noqa: F401
 
 nd = importlib.import_module("repro_torch.core.placement.netduel")
 

@@ -34,6 +34,7 @@ from repro_torch.core.topology import chain
 from repro_torch.models import convert
 from repro_torch.models import model as model_api
 from repro_torch.serve import EngineConfig, SimCacheEngine
+from torch_threads import one_thread  # noqa: F401
 
 SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
              d_ff=128, vocab=256)

@@ -46,22 +46,11 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_ref
 from repro_torch.models import convert
 from repro_torch.models import model as model_api
 from repro_torch.models import moe as tmoe
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = list_archs()
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -4}
 MIN_SCORED = 0.5        # the share of positions a bf16 near-tie mask keeps
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """torch's CPU ops on one thread for this module's small models:
-    beside the suite's other workers, intra-op threads oversubscribe the
-    cores and a step of many small ops waits on their barriers (twice as
-    long or more)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def flat(tree: dict, prefix: tuple = ()) -> dict:

@@ -26,6 +26,7 @@ from repro_torch.core import demand as demand_api
 from repro_torch.launch import serve as launch
 from repro_torch.models import model as model_api
 from repro_torch.serve import SimCacheEngine
+from torch_threads import one_thread  # noqa: F401
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir,
                                    "src"))

@@ -63,6 +63,37 @@ def test_import_loads_no_jax_and_no_reference(modules):
     assert out == "[] False False", out
 
 
+EXAMPLES = ["quickstart_torch", "netduel_online_torch",
+            "serve_simcache_torch", "streaming_serve_torch",
+            "train_lm_torch"]
+
+_EXAMPLE_PROBE = """
+import importlib.util
+import sys
+for name in {names!r}:
+    spec = importlib.util.spec_from_file_location(
+        name, {examples!r} + "/" + name + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "repro"
+             or n.startswith("repro.")))
+"""
+
+
+def test_examples_twins_load_no_jax_and_no_reference():
+    """The examples' twins (``examples/*_torch.py``) import the port
+    alone."""
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__),
+                                        os.pardir))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _EXAMPLE_PROBE.format(
+            names=EXAMPLES, examples=os.path.join(root, "examples"))],
+        capture_output=True, text=True, env=env, timeout=300,
+        check=True).stdout.strip()
+    assert out == "[]", out
+
+
 def test_chip_smoke_refuses_without_a_card():
     """``chip_smoke.py`` prints no result and exits non-zero when no
     CUDA device is available."""

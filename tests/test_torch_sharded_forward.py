@@ -30,19 +30,10 @@ from repro_torch.launch.mesh import ShardMesh
 from repro_torch.launch.sharding import MeshShardPolicy
 from repro_torch.models import model as model_api
 from repro_torch.models.sharding_api import NO_SHARD
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = list_archs()
 MESH = ShardMesh(("data", "model"), (2, 4))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """torch's CPU ops on one thread (small models; beside the suite's
-    other workers intra-op threads oversubscribe the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=ARCHS)

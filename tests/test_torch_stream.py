@@ -41,6 +41,7 @@ from repro_torch.serve import (EngineConfig, SimCacheEngine, StreamDriver,
                                StreamSpec, bucket_size)
 from repro_torch.serve.engine import LATENCY_WINDOW, ServeStats
 from repro_torch.serve.stream import DriverStats
+from torch_threads import one_thread  # noqa: F401
 
 SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
              d_ff=128, vocab=256)

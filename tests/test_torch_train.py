@@ -75,23 +75,12 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule)
 from repro_torch.serve import EngineConfig, SimCacheEngine
 from repro_torch.train import TrainConfig, train
+from torch_threads import one_thread  # noqa: F401
 
 SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
              d_ff=128, vocab=128)
 QUIET = dict(log=lambda *a: None)
 RESUME_RTOL = {"float32": 2e-5, "int8": 1e-3}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """torch's CPU ops on one thread for this module's small models:
-    beside the suite's other workers, intra-op threads oversubscribe the
-    cores and a step of many small ops waits on their barriers (twice as
-    long or more)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def small_cfgs(**fields):
