@@ -891,22 +891,47 @@ def a_targets(keep) -> list:
 def hold_captured_a(torch, calls) -> list:
     """Each captured call of kernel A (``captured.calls`` of
     :func:`a_targets`) with a key held against its plain version
-    (:func:`hold_fused`); a call with no key launches nothing. The
-    checks' fields with the call's role and shape."""
+    (:func:`hold_fused`; the shard-local entry, ``fold_repo=False``, with
+    the repository left out of both); a call with no key launches
+    nothing. The checks' fields with the call's role and shape."""
     held = []
     for role in ("rescore", "rescan"):
         for (qs, keys, h_key, meta), kw, out in calls.get(role, []):
             if keys.shape[0] == 0:
                 continue
-            if (kw["metric"], kw["gamma"], kw["repo_level"],
-                    kw.get("fold_repo", True)) != ("l2", 1.0, -1, True):
-                raise RuntimeError(f"A's {role} call is not the l2, γ 1, "
-                                   f"folded lookup hold_fused checks: {kw}")
+            if (kw["metric"], kw["gamma"], kw["repo_level"]) \
+                    != ("l2", 1.0, -1):
+                raise RuntimeError(f"A's {role} call is not the l2, γ 1 "
+                                   f"lookup hold_fused checks: {kw}")
+            fold = kw.get("fold_repo", True)
             held.append(dict(
-                hold_fused(torch, qs, keys, h_key, meta, kw["h_repo"], out),
-                role=role, Q=qs.shape[0], K=keys.shape[0], D=keys.shape[1],
+                hold_fused(torch, qs, keys, h_key, meta, kw["h_repo"], out,
+                           fold_repo=fold),
+                role=role, fold_repo=fold, Q=qs.shape[0], K=keys.shape[0],
+                D=keys.shape[1],
                 **_plan_fields(torch, qs.shape[0], keys.shape[0],
                                keys.shape[1])))
+    return held
+
+
+def b_targets(keep) -> list:
+    """:class:`captured`'s target for kernel B's entry in the looped
+    lookup (``simcache``'s ``nearest_approximizer``, once a level)."""
+    from repro_torch.core import simcache
+    return [("knn", simcache, "nearest_approximizer", keep)]
+
+
+def hold_captured_b(torch, calls) -> list:
+    """Each captured call of kernel B (:func:`b_targets`) held against
+    its plain version, ``knn_ref`` (:func:`hold_knn`). The checks' fields
+    with the call's shape."""
+    held = []
+    for (qs, keys), kw, out in calls.get("knn", []):
+        if (kw.get("metric", "l2"), kw.get("gamma", 1.0)) != ("l2", 1.0):
+            raise RuntimeError(f"B's call is not the l2, γ 1 call "
+                               f"hold_knn checks: {kw}")
+        held.append(dict(hold_knn(torch, qs, keys, out), Q=qs.shape[0],
+                         K=keys.shape[0], D=keys.shape[1]))
     return held
 
 
@@ -2192,6 +2217,9 @@ def phase_duel(torch, cat, dem, clock_hz: float):
     if not ok:
         raise RuntimeError(f"kernel F disagrees with the plain scan: {res}")
 
+    sharded = duel_sharded_window(torch, nd, inst, slots0, objs, ings,
+                                  arm_flags, slot_draws, one_delta)
+
     # the re-arm: device time a call over the window's re-arms, beside
     # the mean of their bounds; CUDA-event time and the plain version's
     # on the window's first re-arm's inputs
@@ -2214,9 +2242,86 @@ def phase_duel(torch, cat, dem, clock_hz: float):
                  kernels_per_call=dev_r["launches_per_call"] / max(
                      rearm_launches, 1),
                  bound_ms=r_bms, bound_by=r_by, bound_share=r_bms / r_dev,
-                 library_ms=None)
+                 library_ms=None, sharded=sharded)
     log("duel_rearm", **rearm)
     return res, rearm
+
+
+DUEL_SHARDED_T = 1024        # the sharded window: the first requests
+DUEL_SHARDS = 4
+
+
+def duel_sharded_window(torch, nd, inst, slots0, objs, ings, arm_flags,
+                        slot_draws, one_delta) -> dict:
+    """The ``duel`` phase's first ``DUEL_SHARDED_T`` requests through F
+    on an instance sharded over ``make_lookup_mesh(DUEL_SHARDS)`` (its
+    initial tables the request-sharded rebuild) and on the unsharded
+    one: every output bitwise equal, F's re-arm launched once a
+    promoting step of the sharded run (counted just around it) and
+    ``duel_rearm_ref`` never called there. Times: the sharded window's
+    re-arms a call (host clock, ``_duel_scan``'s timings), beside the
+    torch re-arm (``duel_rearm_ref``, CUDA events) on its first re-arm's
+    inputs. Raises on a difference."""
+    from repro_torch.core.objective import DeviceInstance
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.duel import duel_rearm_ref
+    from repro_torch.launch.mesh import make_lookup_mesh
+    T = DUEL_SHARDED_T
+    runs = {}
+    for tag, mesh in (("unsharded", None),
+                      ("sharded", make_lookup_mesh(DUEL_SHARDS))):
+        d = DeviceInstance.from_instance(inst, mesh=mesh,
+                                         axes=("data",) if mesh else (),
+                                         materialize_ca=False)
+        h_slots, on_path = nd._scan_args(d)
+        xs = nd._duel_xs(objs[:T], ings[:T], 0, arm_flags[:T],
+                         slot_draws[:T], device=d.device)
+        carry0 = nd._duel_carry(d, slots0)
+        first = []
+
+        def keep_first(a, kw, out, first=first):   # the first one's inputs
+            if not first:
+                first.append(cloned(torch, a))
+            return True
+        timings = {}
+        with captured([("kernel", nd, "duel_rearm_cuda", keep_first),
+                       ("plain", nd, "duel_rearm_ref",
+                        lambda a, kw, out: True)]) as cap:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out = nd._duel_scan(d, h_slots, on_path, carry0, xs, one_delta,
+                                DUEL_WINDOW, True, False, 0, kernel=True,
+                                timings=timings)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        runs[tag] = dict(out=out, counts=counts,
+                         plain_calls=len(cap.calls["plain"]),
+                         timings=timings, n_shards=d.n_shards,
+                         first=first[0] if first else None)
+    (kc, ko), (sc, so) = (runs[t]["out"] for t in ("unsharded", "sharded"))
+    sh = runs["sharded"]
+    steps = len(so.events)
+    bitwise = (all(torch.equal(a, b) for a, b in zip(kc, sc))
+               and torch.equal(ko.b1, so.b1) and len(ko.events) == steps
+               and all(ek[0] == es[0] and all(torch.equal(a, b) for a, b
+                                              in zip(ek[1:], es[1:]))
+                       for ek, es in zip(ko.events, so.events)))
+    r_ms = sh["timings"].get("rearm_s", 0.0) * 1e3 / max(
+        sh["timings"].get("rearms", 0), 1)
+    plain_ms = cuda_ms(torch, lambda: duel_rearm_ref(*sh["first"]), 3) \
+        if sh["first"] is not None else None
+    res = dict(T=T, n_shards=sh["n_shards"], promoting_steps=steps,
+               promotions=int(sc.n_prom.sum()),
+               rearm_launches=sh["counts"]["duel_rearm"],
+               scan_launches=sh["counts"]["duel_scan"],
+               plain_rearm_calls=sh["plain_calls"], bitwise=bitwise,
+               rearm_ms_per_call=r_ms, torch_rearm_ms=plain_ms)
+    log("duel_sharded", **res)
+    if not (bitwise and steps > 0 and sh["n_shards"] == DUEL_SHARDS
+            and res["rearm_launches"] == steps
+            and sh["plain_calls"] == 0):
+        raise RuntimeError(f"the sharded duel window disagrees: {res}")
+    return res
 
 
 # warm requests of the duel_engine run: its replay on the
@@ -4775,7 +4880,15 @@ EXAMPLE_KERNELS = {
     "netduel_online": ("duel_scan", "duel_rearm"),
     "serve_simcache": ("fused_lookup", "placement_gains"),
     "streaming_serve": ("fused_lookup", "placement_gains", "duel_scan"),
-    "train_lm": ()}
+    "train_lm": (),
+    "amazon_trace": ("fused_lookup", "knn", "placement_gains")}
+# amazon_trace's printed lines on the CPU at the example's sizes (its
+# host LOCALSWAP runs are the same NumPy on either device):
+# PYTHONPATH=src python examples/amazon_trace_torch.py --device cpu
+AMAZON_CPU_LINES = [
+    "unconstrained LOCALSWAP cost: 127.70",
+    "constrained (best d* = 450) cost: 133.86  (+4.8%)",
+    "leaf stores popular-or-central items: 100.0%"]
 
 
 def load_example(name: str):
@@ -4789,6 +4902,54 @@ def load_example(name: str):
     return mod
 
 
+def amazon_kernel_times(torch, calls) -> dict:
+    """Kernels A (the fused lookup), B (the looped lookup's first level)
+    and C (``device_greedy``'s seed) at amazon_trace's shapes, on the
+    inputs its run gave them (``captured.calls``), outside the counted
+    run: CUDA-event ms of the kernel's call and of its plain version,
+    the bound from these inputs (``phase_kernel_a``/``_b``/``_c``'s
+    counts) and, for A and B, the matmul form's ms."""
+    from repro_torch.kernels import knn
+    from repro_torch.kernels.knn.gains import _gains_tiles, _sentinel
+    from repro_torch.kernels.knn.knn import fused_lookup_cuda, knn_cuda
+    from repro_torch.kernels.knn.ref import (_dense_ca, fused_lookup_ref,
+                                             knn_ref)
+    out = {}
+    (q, keys, h_key, meta), kw, _ = calls["rescan"][0]
+    args = (q, keys, h_key, meta, "l2", 1.0, kw["h_repo"], -1)
+    Q, K, D = q.shape[0], keys.shape[0], q.shape[1]
+    bms, by = bound_ms(4 * (Q * D + K * D + K + 4 * K + 5 * Q),
+                       2 * Q * K * D + 5 * Q * K)
+    out["A"] = dict(Q=Q, K=K, D=D,
+                    ms=cuda_ms(torch, lambda: fused_lookup_cuda(*args), 50),
+                    plain_ms=cuda_ms(torch,
+                                     lambda: fused_lookup_ref(*args), 10),
+                    bound_ms=bms, bound_by=by,
+                    library_ms=cuda_ms(torch, lambda: matmul_lookup(
+                        torch, q, keys, h_key, meta, kw["h_repo"]), 10))
+    (q, keys), _, _ = calls["knn"][0]
+    Q, K = q.shape[0], keys.shape[0]
+    bms, by = bound_ms(4 * (Q * D + K * D + 2 * Q), 2 * Q * K * D + 4 * Q * K)
+    out["B"] = dict(Q=Q, K=K, D=D,
+                    ms=cuda_ms(torch, lambda: knn_cuda(q, keys, "l2"), 50),
+                    plain_ms=cuda_ms(torch, lambda: knn_ref(q, keys, "l2"),
+                                     10),
+                    bound_ms=bms, bound_by=by,
+                    library_ms=cuda_ms(torch, lambda: _dense_ca(
+                        q, keys, "l2", 1.0).min(1), 10))
+    (x, y, lam, cur, hreq), kw, _ = calls["gains"][0]
+    R, I, J = x.shape[0], lam.shape[0], hreq.shape[1]
+    bms, by = bound_ms(4 * (2 * R * D + 2 * I * R + I * J + J * R),
+                       2 * R * R * D + R * R * (3 + 3 * I * J))
+    out["C"] = dict(R=R, O=y.shape[0], D=D, I=I, J=J,
+                    ms=cuda_ms(torch, lambda: knn.placement_gains(
+                        x, y, lam, cur, hreq, **kw), 10),
+                    plain_ms=cuda_ms(torch, lambda: _gains_tiles(
+                        x, y, lam, cur, _sentinel(hreq), "l2", 1.0), 3),
+                    bound_ms=bms, bound_by=by, library_ms=None)
+    return out
+
+
 def phase_examples(train_steps: int = 30) -> dict:
     """The examples' twins (item 17) in this process on the card, as a
     user runs them, each at its reference example's sizes: netduel_online
@@ -4799,9 +4960,13 @@ def phase_examples(train_steps: int = 30) -> dict:
     through A), streaming_serve (4 streams, NETDUEL on F,
     ``refresh_on_promotion``, two 600-request phases and the drift) and
     train_lm at ``train_steps`` steps (the ~100M granite-family model, a
-    crash at two thirds and a resume). Each run's launch counts are
-    zeroed just before it and read just after; every kernel of
-    ``EXAMPLE_KERNELS`` must have launched.
+    crash at two thirds and a resume) and amazon_trace (§6.2 on the
+    synthetic trace: 3,000 items, k 80, six 10,000-iteration host
+    LOCALSWAP runs; the whole catalog as one query batch through A fused,
+    B looped, A sharded over this card and the LSH-pruned A; host GREEDY
+    against ``device_greedy``, whose seed is C). Each run's launch
+    counts are zeroed just before it and read just after; every kernel
+    of ``EXAMPLE_KERNELS`` must have launched.
 
     Holds of the kernels, after each run and outside its counts: in
     serve_simcache and streaming_serve every call of A (its inputs and
@@ -4812,13 +4977,17 @@ def phase_examples(train_steps: int = 30) -> dict:
     plain scan and on F, bitwise, each re-arm held against the torch
     re-arm (:func:`hold_duel_planes`), as many scans and re-arms replayed
     as launched; in netduel_online the host replay (the example raises
-    otherwise). Holds of what the examples promise: the adaptation
+    otherwise); in amazon_trace every call of A (the shard-local entry
+    included) and of C as above and every call of B against ``knn_ref``
+    (:func:`hold_captured_b`). Holds of what the examples promise: the adaptation
     (C(A_new | λ2) below C(A_old | λ2)); the warm hit rate above 0 and
     the mean cost below ``h_model``, 128 requests a phase, 8 cold model
     calls; 600 / 15 requests and batches in each streaming phase (the
     reference example's counts), a background swap, no refresh in flight,
     hits after the drift; finite losses, and a resume from the step of
-    the crash's checkpoint to the last step. Each example's printout is
+    the crash's checkpoint to the last step; amazon_trace's three checks
+    true, fused = looped = sharded bitwise, and its printed costs those
+    of its CPU run (``AMAZON_CPU_LINES``). Each example's printout is
     kept in the phase's line."""
     import contextlib
     import io
@@ -4836,14 +5005,16 @@ def phase_examples(train_steps: int = 30) -> dict:
             ("netduel_online", lambda m: m.run()),
             ("serve_simcache", lambda m: m.run()),
             ("streaming_serve", lambda m: m.run()),
-            ("train_lm", lambda m: m.run(steps=train_steps, ckpt=ckpt))):
+            ("train_lm", lambda m: m.run(steps=train_steps, ckpt=ckpt)),
+            ("amazon_trace", lambda m: m.run())):
         mod = load_example(name)
         text = io.StringIO()
         with contextlib.ExitStack() as stack:
             cap = recorder = None
-            if name in ("serve_simcache", "streaming_serve"):
-                cap = stack.enter_context(
-                    captured(a_targets(keep_a) + c_targets(torch)))
+            if name in ("serve_simcache", "streaming_serve", "amazon_trace"):
+                cap = stack.enter_context(captured(
+                    a_targets(keep_a) + c_targets(torch)
+                    + (b_targets(keep_a) if name == "amazon_trace" else [])))
             if name == "streaming_serve":
                 recorder = stack.enter_context(duel_recorder())
             stack.enter_context(contextlib.redirect_stdout(text))
@@ -4853,8 +5024,9 @@ def phase_examples(train_steps: int = 30) -> dict:
             torch.cuda.synchronize()
             counts = launch_counts()
             seconds = time.perf_counter() - t
-        launched = {k: counts[k] for k in ("fused_lookup", "placement_gains",
-                                           "duel_scan", "duel_rearm")}
+        launched = {k: counts[k] for k in ("fused_lookup", "knn",
+                                           "placement_gains", "duel_scan",
+                                           "duel_rearm")}
         held, kernels_held = [], {}
         if cap is not None:
             a_held = hold_captured_a(torch, cap.calls)
@@ -4869,11 +5041,16 @@ def phase_examples(train_steps: int = 30) -> dict:
                                           for h in a_held),
                        ok=all(h["ok"] for h in a_held)),
                 C=[dict(h) for h in c_held])
+            b_held = hold_captured_b(torch, cap.calls)
+            if b_held:
+                kernels_held["B"] = [dict(h) for h in b_held]
             held += [len(a_held) == launched["fused_lookup"],
                      all(h["ok"] for h in a_held),
                      sum(h["launches"] for h in c_held)
                      == launched["placement_gains"],
-                     all(h["ok"] for h in c_held)]
+                     all(h["ok"] for h in c_held),
+                     len(b_held) == launched["knn"],
+                     all(h["ok"] for h in b_held)]
         if recorder is not None:
             f_held = hold_duel_planes(torch, recorder.planes,
                                       out["engine"].ecfg)
@@ -4916,6 +5093,28 @@ def phase_examples(train_steps: int = 30) -> dict:
                                     p50_ms=s.p50_ms, p99_ms=s.p99_ms,
                                     placement_events=s.placement_events)
                                for s in st])
+        elif name == "amazon_trace":
+            lk = out["fused_lookup"]
+            lines = [ln for ln in text.getvalue().splitlines()
+                     if ln.strip()]
+            held += [all(out["checks"].values()), lk["fused_equals_looped"],
+                     lk["sharded_equals_fused"],
+                     lines[:3] == AMAZON_CPU_LINES]
+            u, c = out["fig7_unconstrained"], out["fig7_constrained"]
+            res = dict(cost_unconstrained=u["cost"],
+                       frac_leaf_popular_or_central=u[
+                           "frac_leaf_popular_or_central"],
+                       best_dstar=c["best_dstar"], best_cost=c["best_cost"],
+                       sweep=[(r["dstar"], r["cost"]) for r in c["sweep"]],
+                       overhead_pct=out["constrained_overhead_pct"],
+                       checks=out["checks"], n_shards=lk["n_shards"],
+                       fused_equals_looped=lk["fused_equals_looped"],
+                       sharded_equals_fused=lk["sharded_equals_fused"],
+                       pruned_recall=lk["pruned_recall"],
+                       allocations_equal=out["placement_refresh"][
+                           "allocations_equal"],
+                       cpu_lines_equal=lines[:3] == AMAZON_CPU_LINES,
+                       kernel_times=amazon_kernel_times(torch, cap.calls))
         else:
             losses = out["losses"]
             held += [bool(np.isfinite(losses).all()),
@@ -5168,6 +5367,7 @@ def main() -> int:
     kernels[5]["chain_floor_share"] = f["chain_floor_share"]
     for k, r in ((kernels[5], f), (kernels[6], f_rearm)):
         k["launches_duel"] = r["launches"]     # the `duel` phase's run
+    kernels[6]["launches_duel_sharded"] = f_rearm["sharded"]["rearm_launches"]
     # item 10's torch paths (XLA in the reference, no Pallas kernel), each
     # beside the exact path it sits in front of
     xla_paths = compress["xla"] + [lb_gains, cand_ca]

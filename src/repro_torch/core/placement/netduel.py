@@ -40,14 +40,14 @@ contract between the host policy and the device scan:
 
 A promotion re-arms the tables (``_rearm``). Through kernel F the
 incremental re-arm is F's second entry (``duel_rearm_cuda``), any
-number of promoted slots in one launch. The plain scan, and a
-``DeviceInstance`` that shards (``mesh``, ``axes``), take its plain
-version: ``best_two_delta`` when at most ``PROMOTE_CAP`` slots promote
-at once, else a full rebuild (``best_two_tables``). All give the full
-rebuild's bits. A sharded instance's full rebuild shards the request
-axis (``objective.sharded_best_two_tables``), as the reference's does;
-the scan itself and the dirty-row recompute stay unsharded, as there.
-``incremental=False`` re-arms by the full rebuild, in torch ops.
+number of promoted slots in one launch, on a sharded
+``DeviceInstance`` (``mesh``, ``axes``) as on an unsharded one. The
+plain scan takes its plain version: ``best_two_delta`` when at most
+``PROMOTE_CAP`` slots promote at once, else a full rebuild. All give
+the full rebuild's bits, which a sharded instance's tables are too
+(``objective.sharded_best_two_tables`` shards the request axis of the
+initial tables and of ``incremental=False``'s full rebuild, as the
+reference's does; the scan and the re-arm stay unsharded, as there).
 """
 from __future__ import annotations
 
@@ -230,10 +230,10 @@ def _rearm(dinst: DeviceInstance, slots_new: torch.Tensor,
            promote: torch.Tensor, pre: tuple, incremental: bool,
            kernel: bool = False) -> tuple:
     """Pre-fold and serving tables after a settle wrote ``promote``:
-    the incremental re-arm, through kernel F's second entry (``kernel``,
-    on an unsharded instance) or its plain version; with
-    ``incremental=False`` the full rebuild. Bitwise the same tables
-    every way."""
+    the incremental re-arm, through kernel F's second entry (``kernel``)
+    or its plain version; with ``incremental=False`` the full rebuild
+    (request-axis sharded when the instance shards). Bitwise the same
+    tables every way, sharded or not."""
     if not incremental:
         npre = dinst.best_two_tables(slots_new)
         return (*npre, *fold_best_two(npre[0], npre[1], npre[2],
@@ -241,10 +241,7 @@ def _rearm(dinst: DeviceInstance, slots_new: torch.Tensor,
     coords, ca, metric, gamma, _ = dinst._ca_args()
     args = (pre, slots_new, promote, dinst.slot_cache, dinst.H,
             dinst.h_repo, coords, ca, metric, gamma)
-    mesh, axes = dinst._shard_args()
-    if kernel and mesh is None:
-        return duel_rearm_cuda(*args)
-    return duel_rearm_ref(*args, mesh=mesh, axes=axes)
+    return (duel_rearm_cuda if kernel else duel_rearm_ref)(*args)
 
 
 class ScanOut(NamedTuple):

@@ -198,41 +198,32 @@ duel_scan_cuda.launches = 0
 
 
 def duel_rearm_ref(pre, slots_new, promote, slot_cache, H, h_repo, coords,
-                   ca, metric: str, gamma: float, mesh=None,
-                   axes: tuple = ()) -> tuple:
+                   ca, metric: str, gamma: float) -> tuple:
     """Plain version of the re-arm: the pre-fold tables (b1, a1, b2, a2)
     after a settle wrote the ``promote`` slots of ``slots_new``, by the
     incremental refresh (``objective.best_two_delta``, its dirty-row cap
     ``default_delta_cap``) when at most ``PROMOTE_CAP`` slots promoted,
     else by the full rebuild; then the serving tables (best1, arg1,
-    best2) by the fold. Bitwise the full rebuild folded either way. With
-    ``mesh`` the full rebuilds shard the request axis, as
-    ``DeviceInstance``'s do."""
+    best2) by the fold. Bitwise the full rebuild folded either way, and
+    so bitwise a sharded instance's tables too."""
     from repro_torch.core.objective import (_best_two_rows_pre,
                                             best_two_delta,
                                             default_delta_cap,
-                                            fold_best_two,
-                                            sharded_best_two_tables)
+                                            fold_best_two)
     has_ca = ca is not None
     K = promote.shape[0]
     ys = torch.nonzero(promote).reshape(-1)
     if ys.numel() > PROMOTE_CAP:
-        if mesh is not None:
-            npre = sharded_best_two_tables(coords, ca, slots_new, slot_cache,
-                                           H, mesh, axes, metric, gamma,
-                                           has_ca)
-        else:
-            npre = _best_two_rows_pre(
-                ca if has_ca else coords,
-                None if has_ca else coords[slots_new.clamp_min(0)],
-                slots_new, slot_cache, H, metric, gamma, has_ca)
+        npre = _best_two_rows_pre(
+            ca if has_ca else coords,
+            None if has_ca else coords[slots_new.clamp_min(0)],
+            slots_new, slot_cache, H, metric, gamma, has_ca)
     else:
         ys = torch.cat([ys, ys.new_full((PROMOTE_CAP - ys.numel(),), K)])
         n_obj = (ca if has_ca else coords).shape[0]
         npre = best_two_delta(coords, ca, *pre, slots_new, ys, slot_cache,
                               H, metric, gamma, has_ca,
-                              cap=default_delta_cap(n_obj), mesh=mesh,
-                              axes=axes)
+                              cap=default_delta_cap(n_obj))
     return (*npre, *fold_best_two(npre[0], npre[1], npre[2], h_repo))
 
 

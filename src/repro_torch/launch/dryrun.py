@@ -188,7 +188,8 @@ def dtensor_seam(n_ranks: int):
       ``UNEVEN_VIEW_ERROR`` or ``SHARDED_VIEW_ERROR``);
     * the local ops (:func:`_local_ops`: ``gather`` and
       ``log_sigmoid_backward`` shard by shard where DTensor has no
-      strategy for them);
+      strategy for them, and ``flip``, ``index_put`` and ``index`` where
+      DTensor raises on them);
     * ``implicit_replication`` (a plain tensor counts as replicated);
     * the all-to-all swap (:func:`_alltoall_on_cpu_mesh`);
     * exact integer partials (:func:`_exact_integer_partial`).
@@ -292,7 +293,7 @@ def _uneven_view_fix():
 
 
 def _local_ops():
-    """A dispatch mode that runs two ops shard by shard (a ``local_map``
+    """A dispatch mode that runs ops shard by shard (a ``local_map``
     with the inputs' own placements) where DTensor has no strategy:
 
     * ``aten.gather`` whose input and index are laid out alike and not
@@ -307,8 +308,27 @@ def _local_ops():
       to ``self``'s placements — a collective DTensor would issue as
       well, which the count includes.
 
+    and, only where DTensor itself raises on the call (torch 2.11 does;
+    torch 2.13 runs all three, and the seam leaves them to it):
+
+    * ``aten.flip`` (xlstm's reversed scan; 2.11 has no strategy): a
+      mesh dimension that splits a flipped dimension is replicated
+      first (an all-gather, counted), then each shard flips; the output
+      keeps the input's placements. This is 2.13's own rule.
+    * ``aten.index_put`` (the embedding's backward; 2.11's rule maps a
+      split of the values' index dimension to an unnormalized
+      ``Shard(-1)`` of the table): the ids are replicated, the table
+      and the values take :func:`_index_put_placements`' layout (2.13's
+      choice at every layout the train cells give the op but 2.11's dp
+      one, where it issues as many collectives, one of another kind;
+      tests/test_torch_dryrun.py), and the op runs shard by shard.
+    * ``aten.index.Tensor`` (the embedding's lookup under
+      ``ffn_mode="dp_batch"``; 2.11 refuses an index split twice on one
+      dimension): the later mesh dimensions of such a split are
+      replicated (an all-gather, counted), and DTensor runs the op.
+
     Every other call goes on to DTensor."""
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate
     from torch.utils._python_dispatch import TorchDispatchMode
     aten = torch.ops.aten
 
@@ -347,8 +367,105 @@ def _local_ops():
                     out = func(grad.redistribute(mesh, pl).to_local(),
                                x.to_local(), buf.to_local())
                     return wrap(out, x, x.shape)
+            if func in (aten.flip.default, aten.index_put.default,
+                        aten.index.Tensor):
+                try:
+                    return func(*args, **kwargs)
+                except RuntimeError:          # DTensor's propagation
+                    if func is aten.flip.default:
+                        out = local_flip(*args)
+                    elif func is aten.index_put.default:
+                        out = local_index_put(func, *args, **kwargs)
+                    else:
+                        out = index_unsplit(func, *args, **kwargs)
+                    if out is None:
+                        raise
+                    return out
             return func(*args, **kwargs)
+
+    def local_flip(x, dims):
+        if not isinstance(x, DTensor):
+            return None
+        flipped = {d % x.ndim for d in dims}
+        pl = [Replicate() if getattr(p, "dim", None) in flipped else p
+              for p in x.placements]
+        x = x.redistribute(x.device_mesh, pl)
+        return wrap(torch.flip(x.to_local(), dims), x, x.shape)
+
+    def local_index_put(func, x, indices, values, *rest, **kwargs):
+        ids = [i for i in indices if i is not None]
+        if not (isinstance(x, DTensor) and isinstance(values, DTensor)
+                and all(isinstance(i, DTensor) for i in ids)):
+            return None
+        mesh = values.device_mesh
+        x_pl, v_pl = _index_put_placements(x.shape, indices, values.shape,
+                                           values.placements)
+        rep = [Replicate()] * mesh.ndim
+        local_ids = [None if i is None else i.redistribute(mesh, rep)
+                     .to_local() for i in indices]
+        v = values.redistribute(mesh, v_pl).to_local()
+        x = x.redistribute(mesh, x_pl)
+        out = func(x.to_local(), local_ids, v, *rest, **kwargs)
+        return wrap(out, x, x.shape)
+
+    def index_unsplit(func, x, indices):
+        new, moved = [], False
+        for i in indices:
+            if isinstance(i, DTensor):
+                seen, pl = set(), list(i.placements)
+                for m, p in enumerate(pl):
+                    d = getattr(p, "dim", None)
+                    if d is None:
+                        continue
+                    if d in seen:
+                        pl[m], moved = Replicate(), True
+                    seen.add(d)
+                i = i.redistribute(i.device_mesh, pl)
+            new.append(i)
+        return func(x, new) if moved else None
     return LocalOps()
+
+
+def _index_put_placements(x_shape, indices, v_shape, v_placements
+                          ) -> tuple[list, list]:
+    """The (table, values) placements :func:`_local_ops` gives
+    ``index_put(x, indices, values)``, by torch 2.13's rule (the indices
+    are replicated): on each mesh dimension the values keep a split of a
+    dimension they share with the table (the table splits its own) and
+    a ``Partial`` (the table turns partial too); anything else is
+    replicated. Where no split is kept, the last replicated mesh
+    dimension splits the last shared dimension of both, a local chunk,
+    as 2.13 does, so the values' all-gather moves a fraction of them."""
+    from torch.distributed.tensor import Replicate, Shard
+    pos = [d for d, i in enumerate(indices) if i is not None]
+    nb = len(torch.broadcast_shapes(*(i.shape for i in indices
+                                      if i is not None)))
+    rest = [d for d in range(len(x_shape)) if d not in pos]
+    contiguous = pos == list(range(pos[0], pos[0] + len(pos)))
+    lead = len(rest) + nb - len(v_shape)       # values' missing leading dims
+    shared = {}                                # values dim → table dim
+    for k, d in enumerate(rest):
+        at = (d if d < pos[0] else d - len(pos) + nb) if contiguous \
+            else nb + k
+        if at - lead >= 0 and v_shape[at - lead] == x_shape[d]:
+            shared[at - lead] = d
+    x_pl, v_pl = [], []
+    for p in v_placements:
+        if type(p) is Shard and p.dim in shared:
+            x_pl.append(Shard(shared[p.dim]))
+            v_pl.append(p)
+        elif p.is_partial():
+            x_pl.append(p)
+            v_pl.append(p)
+        else:
+            x_pl.append(Replicate())
+            v_pl.append(Replicate())
+    kept = any(type(p) is Shard for p in v_pl)
+    free = [m for m, p in enumerate(v_pl) if p.is_replicate()]
+    if not kept and free and shared:
+        vd = max(shared)
+        x_pl[free[-1]], v_pl[free[-1]] = Shard(shared[vd]), Shard(vd)
+    return x_pl, v_pl
 
 
 @contextlib.contextmanager

@@ -14,10 +14,17 @@ launch/reanalyze.py) at smoke size.
   production routing, xlstm's train step, ``ffn_mode="dp"``), through
   the dry run's seam (``dryrun.dtensor_seam``), which names every torch
   internal it uses and leaves DTensor as it found it.
+* Where DTensor itself raises on ``flip``, ``index_put`` or ``index``
+  (torch 2.11 does, in every train cell; here its refusal is put in by
+  hand), the seam's fallback gives the plain op's values and issues the
+  collectives DTensor 2.13 issues for the same call (as many, of one
+  other kind, at one layout).
 * ``reanalyze`` recomputes a stored record's roofline to the value it
   had; the command line writes a skipped record for an unsupported cell.
 """
+import contextlib
 import dataclasses
+import itertools
 import json
 
 import numpy as np
@@ -280,6 +287,191 @@ def test_collective_pricing_of_a_known_redistribution():
     assert counter.records == [("all-gather", 64 * 64 * 4, 4),
                                ("all-to-all", 64 * 16 * 4, 4)]
     assert roofline._ring_bytes("all-gather", 64 * 64 * 4, 4) == 12288.0
+
+
+# ----------------------------------------- the ops torch 2.11 refuses
+R, S = Replicate(), Shard
+# shapes no other test here uses: DTensor caches a sharding decision per
+# op and input layout, and a cached one would not ask the refusal below
+TABLE, IDX = (96, 24), (8, 6)
+
+
+@contextlib.contextmanager
+def dtensor_refuses(op, refuse=lambda schema: True):
+    """DTensor's sharding propagation raising on ``op`` where
+    ``refuse(schema)`` holds, as torch 2.11's does on the dry run's
+    train steps (no ``flip`` rule, an unnormalized ``index_put`` split,
+    no index split twice on one dimension)."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    names = ("propagate_op_sharding", "propagate_op_sharding_non_cached")
+    own = {n: getattr(prop, n) for n in names}
+    held = {n: n in vars(prop) for n in names}      # set on the instance
+
+    def refusing(name):
+        def propagate(schema):
+            if schema.op is op and refuse(schema):
+                refused.append(op)
+                raise RuntimeError(f"no sharding for {op} (torch 2.11)")
+            return own[name](schema)
+        return propagate
+    refused = []
+    for n in names:
+        setattr(prop, n, refusing(n))
+    try:
+        yield refused
+    finally:
+        for n in names:
+            if held[n]:
+                setattr(prop, n, own[n])
+            else:
+                delattr(prop, n)
+
+
+def seam_call(mesh_shape, fn, args, refuse=None):
+    """``fn(*args)`` on meta DTensors (``args``: (shape, dtype,
+    placements)) through the seam on a fake 8-rank group, with DTensor
+    refusing ``refuse`` (an op, or (op, predicate)); the output's
+    placements and the collectives recorded."""
+    with dryrun.dtensor_seam(8) as step:
+        mesh = init_device_mesh("cpu", mesh_shape,
+                                mesh_dim_names=("data", "model"))
+        ts = [distribute_tensor(torch.zeros(shape, dtype=dt,
+                                            device="meta"), mesh, pl)
+              for shape, dt, pl in args]
+        counter = dryrun._collective_counter()
+        refusing = contextlib.nullcontext() if refuse is None else \
+            dtensor_refuses(*(refuse if isinstance(refuse, tuple)
+                              else (refuse,)))
+        with step(counter), refusing as refused:
+            out = fn(*ts)
+    assert refuse is None or refused, "DTensor was not asked"
+    return tuple(out.placements), counter.records
+
+
+def blocks(t, mesh_shape, placements) -> dict:
+    """Each mesh coordinate's block of ``t`` under ``placements``
+    (replicated or evenly split dims, split in mesh-dim order)."""
+    out = {}
+    for coord in itertools.product(*map(range, mesh_shape)):
+        b = t
+        for m, p in enumerate(placements):
+            if p.is_shard():
+                b = b.chunk(mesh_shape[m], dim=p.dim)[coord[m]]
+        out[coord] = b
+    return out
+
+
+def assemble(local: dict, mesh_shape, placements, shape):
+    """The global tensor of ``local`` blocks; the coordinates that hold
+    one block (a replicated mesh dim) must agree on it."""
+    g = torch.full(shape, float("nan"), dtype=torch.float64)
+    for coord, b in local.items():
+        view = blocks(g, mesh_shape, placements)[coord]
+        if view.isnan().any():
+            view.copy_(b)
+        else:
+            assert torch.equal(view, b.double())
+    return g
+
+
+# DTensor 2.13's own output layout and collectives for each call below
+AG = "all-gather"
+
+
+@pytest.mark.parametrize("mesh_shape,placements,want", [
+    ((4, 2), [S(0), S(1)], ((S(0), S(1)), [])),
+    ((4, 2), [S(0), S(2)], ((S(0), R), [(AG, 192, 2)])),
+    ((2, 4), [R, S(2)], ((R, R), [(AG, 1024, 4)]))],
+    ids=["unsplit", "split_model", "split_2x4"])
+def test_flip_where_dtensor_has_no_rule(mesh_shape, placements, want):
+    """xlstm's ``flip`` (2.11 has no rule): a mesh dim that splits the
+    flipped dim is gathered first, then each shard flips — DTensor
+    2.13's layout and collectives, and the plain flip."""
+    shape = (8, 4, 6)
+
+    def flip(x):
+        return torch.flip(x, [-1])
+    got = seam_call(mesh_shape, flip, [(shape, torch.float32, placements)],
+                    refuse=torch.ops.aten.flip.default)
+    assert got == want
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=shape))
+    local = {c: b.flip(-1) for c, b in blocks(x, mesh_shape,
+                                              got[0]).items()}
+    assert torch.equal(assemble(local, mesh_shape, got[0], shape),
+                       x.flip(-1))
+
+
+@pytest.mark.parametrize("mesh_shape,idx_pl,val_pl,want,exact", [
+    ((4, 2), [S(0), R], [S(2), S(1)],
+     ((S(1), R), [(AG, 384, 4), (AG, 1152, 2)]), True),
+    ((2, 4), [S(0), R], [S(2), S(2)],
+     ((S(1), S(1)), [(AG, 384, 2)]), True),
+    ((4, 2), [S(0), S(0)], [S(2), R],
+     ((S(1), R), [(AG, 96, 2), (AG, 384, 4)]), True),
+    ((4, 2), [S(0), R], [S(0), R],
+     ((R, S(1)), [(AG, 384, 4), (AG, 2304, 4)]), True),
+    ((4, 2), [S(0), S(1)], [S(0), S(1)],
+     ((R, R), [(AG, 96, 2), (AG, 384, 4), (AG, 1152, 2), (AG, 4608, 4)]),
+     False)],
+    ids=["2.13_4x2", "2.13_2x4", "2.13_dp_batch", "2.11_4x2", "2.11_dp"])
+def test_embedding_backward_where_dtensor_refuses(mesh_shape, idx_pl,
+                                                  val_pl, want, exact):
+    """The embedding's backward, ``index_put(table, [ids], grads,
+    accumulate=True)``, at the layouts the train steps give it under
+    2.13 and 2.11. The seam replicates the ids and keeps or gathers
+    the gradients' splits (``_index_put_placements``): at every layout
+    but 2.11's dp one that is DTensor 2.13's own choice, output layout
+    and collectives alike. At the dp one (gradients split on both index
+    dims) 2.13 prices its options by size and gathers the gradients
+    whole here; the seam gathers the data split and moves the model one
+    to the gradients' width (an all-to-all): as many collectives, one
+    of another kind. Shard by shard it is the plain op."""
+    put = torch.ops.aten.index_put.default
+    vshape = IDX + TABLE[1:]
+    args = [(TABLE, torch.float32, [R, R]), (IDX, torch.int64, idx_pl),
+            (vshape, torch.float32, val_pl)]
+
+    def fn(x, i, v):
+        return put(x, [i], v, True)
+    got = seam_call(mesh_shape, fn, args, refuse=put)
+    if exact:
+        assert got == want
+    else:
+        assert len(got[1]) == len(want[1])
+    x_pl, v_pl = dryrun._index_put_placements(TABLE, [torch.empty(IDX)],
+                                              vshape, val_pl)
+    assert tuple(x_pl) == got[0]
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.integers(-4, 4, TABLE).astype(np.float32))
+    ids = torch.as_tensor(rng.integers(0, TABLE[0] // 8, IDX))   # repeats
+    v = torch.as_tensor(rng.integers(-4, 4, vshape).astype(np.float32))
+    vb = blocks(v, mesh_shape, v_pl)
+    local = {c: put(b, [ids], vb[c], True)
+             for c, b in blocks(x, mesh_shape, x_pl).items()}
+    assert torch.equal(assemble(local, mesh_shape, x_pl, TABLE),
+                       put(x, [ids], v, True).double())
+
+
+def test_index_split_twice_where_dtensor_refuses():
+    """The embedding's lookup under ``dp_batch``, ids split on dim 0 by
+    both mesh dims (2.11 refuses it): the seam gathers the second split
+    (one all-gather) and hands the call back to DTensor."""
+    index = torch.ops.aten.index.Tensor
+
+    def twice(schema):
+        (ids,) = schema.args_schema[1]
+        dims = [p.dim for p in ids.placements if p.is_shard()]
+        return len(set(dims)) < len(dims)
+
+    def fn(w, i):
+        return index(w, [i])
+    args = [(TABLE, torch.float32, [S(1), R]),
+            ((8, 4), torch.int64, [S(0), S(0)])]
+    got = seam_call((4, 2), fn, args, refuse=(index, twice))
+    moved = seam_call((4, 2), fn, [args[0], ((8, 4), torch.int64,
+                                             [S(0), R])])
+    assert got[1] == [("all-gather", 8 * 4 * 8 // 4, 2)] + moved[1]
+    assert got[0] == moved[0]
 
 
 def test_reanalyze_round_trip(tmp_path, monkeypatch):

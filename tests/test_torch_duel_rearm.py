@@ -147,10 +147,10 @@ def test_rearm_inputs_untouched():
 
 @pytest.mark.parametrize("n_shards", [1, 2])
 def test_rearm_routes_on_shard_count(monkeypatch, n_shards):
-    """``_rearm(kernel=True)`` sends an instance that does not shard (a
-    mesh of one shard included) to kernel F's second entry, and a sharded
-    one to the plain version with its mesh, whose full rebuilds shard the
-    request axis."""
+    """``_rearm(kernel=True)`` sends every instance to kernel F's second
+    entry, sharded or not (the sharded tables are bitwise the unsharded
+    ones, so the re-arm needs no mesh), and ``kernel=False`` to the plain
+    version, with no mesh either."""
     import importlib
 
     from repro_torch.core import catalog, demand, topology
@@ -177,9 +177,7 @@ def test_rearm_routes_on_shard_count(monkeypatch, n_shards):
                         lambda *a, **kw: calls.append(("kernel", kw)))
     monkeypatch.setattr(nd, "duel_rearm_ref",
                         lambda *a, **kw: calls.append(("plain", kw)))
-    nd._rearm(d, slots_new, promote, tuple(carry[1:5]), incremental=True,
-              kernel=True)
-    if n_shards == 1:
-        assert calls == [("kernel", {})]
-    else:
-        assert calls == [("plain", dict(mesh=d.mesh, axes=("data",)))]
+    for kernel in (True, False):
+        nd._rearm(d, slots_new, promote, tuple(carry[1:5]),
+                  incremental=True, kernel=kernel)
+    assert calls == [("kernel", {}), ("plain", {})]

@@ -29,6 +29,14 @@ Tolerances:
   after the drift.
 * train_lm at a narrow width: the crash and resume give the losses and
   parameters of an uninterrupted run bitwise.
+* amazon_trace at 600 items (k 20, 2,000 LOCALSWAP iterations, d* 250,
+  450, 800), against the reference's experiment composed from its own
+  calls: catalog, λ, shell density, checks and every LOCALSWAP
+  allocation exact; the host costs to ``TRACE_REL`` (each package
+  prices with its own f32 C_a); the port's fused, looped and sharded
+  (one shard, the CPU's one device) lookups bitwise equal, the pruned
+  recall and the device GREEDY equal to the reference's; the host
+  GREEDY's one difference is shown to be an f32 near-tie.
 
 Every twin refuses to run without a card unless asked for the CPU.
 """
@@ -50,10 +58,18 @@ from torch_threads import one_thread  # noqa: F401
 EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         os.pardir, "examples")
 TWINS = ["quickstart", "netduel_online", "serve_simcache",
-         "streaming_serve", "train_lm"]
+         "streaming_serve", "train_lm", "amazon_trace"]
 HOST_REL = 1e-5          # host costs (tests/test_torch_placement.py)
 PRED_REL = 1e-4          # predicted C(A) (tests/test_torch_engine.py)
 N_REQUESTS = 10000       # netduel_online's requests a phase (40,000 in it)
+# amazon_trace's host costs: each package builds C_a by the matmul form
+# |x|² + |y|² − 2x·y in f32, at |x|² ~ 1e6, and the two round differently
+# (by up to 0.61 near the diagonal, where the sqrt amplifies the
+# cancellation). Equal allocations are priced 6.6e-5 apart at the test's
+# size and 1.4e-5 at the example's.
+TRACE_REL = 1e-4
+TRACE_SIZES = dict(n_items=600, k=20, h=150.0, ls_iters=2000,
+                   dstars=(250.0, 450.0, 800.0))
 
 
 def load(name: str):
@@ -321,6 +337,203 @@ def test_train_lm_resume_equals_an_uninterrupted_run(tmp_path, monkeypatch,
     resumed = dict(out["resumed"]["params"].named_parameters())
     for name, p in whole["params"].named_parameters():
         assert torch.equal(resumed[name], p), name
+
+
+# ------------------------------------------------------------ amazon_trace
+def shell_density(cat, dem, n_shells: int = 20):
+    """Fig. 8's shell density as the reference experiment computes it
+    (benchmarks/fig78_trace.py:43-52)."""
+    r = np.linalg.norm(cat.coords, axis=1)
+    edges = np.linspace(0, np.quantile(r, 0.99), n_shells + 1)
+    dens = []
+    for i in range(n_shells):
+        m = (r >= edges[i]) & (r < edges[i + 1])
+        vol = edges[i + 1] - edges[i]
+        dens.append(float(dem.lam[0][m].sum() / max(vol, 1e-9)))
+    return edges.tolist(), dens
+
+
+def reference_trace(n_items, k, h, ls_iters, dstars) -> dict:
+    """The reference's §6.2 experiment, composed from its ``repro``
+    calls in the order of ``run`` in benchmarks/fig78_trace.py (the
+    instance :35-40, Fig. 8 :64-69, Fig. 7 left :71-89, the lookups
+    :91-130, the refresh :132-150, the sweep :152-171), without its
+    timing columns and the JSON it writes."""
+    import jax.numpy as jnp
+
+    from repro.core import catalog, demand, topology
+    from repro.core.objective import DeviceInstance, Instance
+    from repro.core.placement import device_greedy, greedy, localswap
+    from repro.core.placement.localswap import constrained_localswap
+    from repro.core.simcache import SimCacheNetwork
+    cat = catalog.embedding_catalog(n=n_items, dim=100, seed=0,
+                                    radial="decreasing")
+    dem = demand.zipf(cat, alpha=0.8, seed=1)
+    inst = Instance(net=topology.tandem(k_leaf=k, k_parent=k, h=h,
+                                        h_repo=1000.0), cat=cat, dem=dem)
+    _, dens = shell_density(cat, dem)
+    half = len(dens) // 2
+    checks = {"density decreasing":
+              float(np.mean(dens[:half])) > float(np.mean(dens[half:]))}
+    ls = localswap(inst, n_iters=ls_iters, seed=0)
+    radii = np.linalg.norm(cat.coords, axis=1)
+    pop_rank = np.argsort(np.argsort(-inst.lam[0]))
+    leaf = ls.slots[inst.slot_cache == 0]
+    frac = float(np.mean((pop_rank[leaf] < n_items * 0.1)
+                         | (radii[leaf] < np.quantile(radii, 0.25))))
+    checks["leaf stores popular-or-central"] = frac > 0.5
+    net = SimCacheNetwork.from_placement(
+        cat.coords, ls.slots, inst.slot_cache, hs=[0.0, h], h_repo=1000.0,
+        metric=cat.metric, gamma=cat.gamma, fused=True)
+    q = jnp.asarray(cat.coords)
+    exact, pruned = net.lookup(q), net.lookup(q, prune="lsh")
+    recall = float(np.mean(
+        (np.asarray(pruned.payload) == np.asarray(exact.payload))
+        & (np.asarray(pruned.level) == np.asarray(exact.level))))
+    hg = greedy(inst)
+    dg = device_greedy(DeviceInstance.from_instance(inst,
+                                                    materialize_ca=False))
+    sweep = []
+    for dstar in dstars:
+        allowed = np.zeros((inst.net.total_slots, cat.n), dtype=bool)
+        allowed[inst.slot_cache == 0] = radii[None, :] < dstar
+        allowed[inst.slot_cache == 1] = radii[None, :] >= dstar
+        st = constrained_localswap(inst, allowed, n_iters=ls_iters, seed=0)
+        sweep.append((dstar, st.cost(inst), st.slots))
+    best = min(sweep, key=lambda r: r[1])
+    checks["constrained close to unconstrained (<15%)"] = \
+        best[1] <= ls.cost(inst) * 1.15
+    return {"inst": inst, "dens": dens, "checks": checks, "ls": ls,
+            "frac": frac, "recall": recall, "host": hg, "device": dg,
+            "sweep": sweep, "best": best,
+            "overhead": 100.0 * (best[1] / ls.cost(inst) - 1.0)}
+
+
+def near_tie(jinst, tinst, jpicks, tpicks):
+    """Where the two host GREEDY pick sequences first part, the
+    reference's gain gap between the two picks (f64 on its C_a) and the
+    most the two packages' C_a can move that gap: each gain
+    Σ λ·max(0, cur − H − C_a[:, o]) moves by at most Σ λ·(|Δcur| +
+    |ΔC_a[:, o]|), with cur the running costs after the common picks."""
+    i = next(n for n, (a, b) in enumerate(zip(jpicks, tpicks)) if a != b)
+    jcur = np.repeat(jinst.net.h_repo[:, None].astype(np.float64),
+                     jinst.cat.n, axis=1)
+    tcur = jcur.copy()
+    for o, j in jpicks[:i]:
+        jcur = jinst.updated_costs(jcur, o, j)
+        tcur = tinst.updated_costs(tcur, o, j)
+    g = jinst.add_gain_all(jcur)
+    (o1, j1), (o2, j2) = jpicks[i], tpicks[i]
+    dca = np.abs(jinst.ca.astype(np.float64) - tinst.ca)
+    bound = float((jinst.lam * (2 * np.abs(jcur - tcur)
+                                + dca[:, o1] + dca[:, o2])).sum())
+    return g[o1, j1] - g[o2, j2], bound
+
+
+def test_amazon_trace_matches_the_reference(monkeypatch):
+    import repro.core.objective as jobjective
+
+    import repro_torch.core.objective as tobjective
+    twin = load("amazon_trace_torch")
+    picks = {"ref": [], "port": []}
+    active = []
+
+    def recording(cls, key):
+        updated = cls.updated_costs
+
+        def wrapped(self, cur, obj, cache):
+            if active == [key]:
+                picks[key].append((int(obj), int(cache)))
+            return updated(self, cur, obj, cache)
+        monkeypatch.setattr(cls, "updated_costs", wrapped)
+
+    def during(owner, name, key):
+        fn = getattr(owner, name)
+
+        def wrapped(*args, **kwargs):
+            active.append(key)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                active.pop()
+        monkeypatch.setattr(owner, name, wrapped)
+    recording(jobjective.Instance, "ref")
+    recording(tobjective.Instance, "port")
+    import repro.core.placement as jplacement
+    during(jplacement, "greedy", "ref")
+    during(twin, "greedy", "port")
+
+    ref = reference_trace(**TRACE_SIZES)
+    out = twin.run(device="cpu", **TRACE_SIZES)
+    jinst, tinst = ref["inst"], out["instance"]
+    assert np.array_equal(jinst.cat.coords, tinst.cat.coords)
+    assert np.array_equal(jinst.lam, tinst.lam)
+    assert out["fig8"]["density"] == ref["dens"]
+    assert out["checks"] == ref["checks"]
+    assert all(out["checks"].values())
+
+    u = out["fig7_unconstrained"]
+    assert np.array_equal(u["slots"], ref["ls"].slots)
+    assert u["frac_leaf_popular_or_central"] == ref["frac"]
+    assert close(u["cost"], ref["ls"].cost(jinst), TRACE_REL)
+    for row, (dstar, cost, slots) in zip(out["fig7_constrained"]["sweep"],
+                                         ref["sweep"]):
+        assert row["dstar"] == dstar
+        assert np.array_equal(row["slots"], slots)
+        assert close(row["cost"], cost, TRACE_REL)
+    c = out["fig7_constrained"]
+    if c["best_dstar"] != ref["best"][0]:
+        assert close(c["best_cost"], ref["best"][1], TRACE_REL)
+    assert close(c["best_cost"], ref["best"][1], TRACE_REL)
+    assert abs(out["constrained_overhead_pct"] - ref["overhead"]) <= \
+        100.0 * 2 * TRACE_REL * c["best_cost"] / u["cost"]
+
+    lk = out["fused_lookup"]
+    assert lk["n_shards"] == 1
+    assert lk["fused_equals_looped"] and lk["sharded_equals_fused"]
+    assert lk["pruned_recall"] == ref["recall"]
+
+    pr = out["placement_refresh"]
+    assert np.array_equal(pr["device"], ref["device"])
+    assert np.array_equal(ref["host"], ref["device"])
+    if not pr["allocations_equal"]:
+        # the port's host GREEDY takes two near-tied picks in the other
+        # order, and ends with the same objects in each cache
+        gap, bound = near_tie(jinst, tinst, picks["ref"], picks["port"])
+        assert 0.0 <= gap <= bound, (gap, bound)
+        for j in range(jinst.net.n_caches):
+            at = jinst.slot_cache == j
+            assert sorted(pr["host"][at]) == sorted(ref["host"][at])
+
+
+@pytest.mark.gpu
+def test_amazon_trace_on_the_card_equals_the_cpu_twin():
+    """The twin at the CPU test's sizes on the card (kernels A, B, C)
+    and on the CPU (their plain versions): every discrete output equal —
+    the checks, every LOCALSWAP allocation and the best d* (host NumPy
+    either way), the lookups' agreement, the exact lookup's winners and
+    the pruned recall, and the device GREEDY."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    twin = load("amazon_trace_torch")
+    card = twin.run(**TRACE_SIZES)
+    cpu = twin.run(device="cpu", **TRACE_SIZES)
+    assert card["checks"] == cpu["checks"]
+    assert np.array_equal(card["fig7_unconstrained"]["slots"],
+                          cpu["fig7_unconstrained"]["slots"])
+    for a, b in zip(card["fig7_constrained"]["sweep"],
+                    cpu["fig7_constrained"]["sweep"]):
+        assert np.array_equal(a["slots"], b["slots"])
+    assert card["fig7_constrained"]["best_dstar"] == \
+        cpu["fig7_constrained"]["best_dstar"]
+    lc, lp = card["fused_lookup"], cpu["fused_lookup"]
+    assert lc["fused_equals_looped"] and lc["sharded_equals_fused"]
+    for f in ("level", "slot", "payload"):
+        assert torch.equal(getattr(lc["exact"], f).cpu(),
+                           getattr(lp["exact"], f))
+    assert lc["pruned_recall"] == lp["pruned_recall"]
+    assert np.array_equal(card["placement_refresh"]["device"],
+                          cpu["placement_refresh"]["device"])
 
 
 # --------------------------------------------------------------- no card

@@ -1087,6 +1087,42 @@ def test_duel_window_rearms_through_the_kernel(cuda, materialize):
     _assert_duel_bitwise(got, device_netduel(d, plain=True, **kw))
 
 
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_duel_window_rearms_through_the_kernel(cuda, n_shards):
+    """``device_netduel`` on an instance sharded over
+    ``make_lookup_mesh(n)``, on the card: bitwise the unsharded window,
+    one launch of F's re-arm per promoting step and no call of its plain
+    version (the sharded tables are bitwise the unsharded ones, so the
+    re-arm needs no mesh). (The reference's sharded NETDUEL is held on
+    the CPU: tests/test_torch_sharded.py.)"""
+    import importlib
+
+    from repro_torch.kernels.duel import duel_rearm_cuda
+    from repro_torch.launch.mesh import make_lookup_mesh
+    nd = importlib.import_module("repro_torch.core.placement.netduel")
+    inst = _duel_instance("l2", n=800)
+    kw = dict(n_iters=2500, seed=4, window=250, arm_prob=0.4,
+              record_events=True)
+    want = device_netduel(DeviceInstance.from_instance(
+        inst, materialize_ca=False, device=cuda), **kw)
+    d = DeviceInstance.from_instance(inst, mesh=make_lookup_mesh(n_shards),
+                                     axes=("data",), materialize_ca=False,
+                                     device=cuda)
+    assert d.n_shards == n_shards
+    plain = []
+    ref = nd.duel_rearm_ref
+    nd.duel_rearm_ref = lambda *a: (plain.append(1), ref(*a))[1]
+    try:
+        n0 = duel_rearm_cuda.launches
+        got = device_netduel(d, **kw)
+        launched = duel_rearm_cuda.launches - n0
+    finally:
+        nd.duel_rearm_ref = ref
+    steps = len({e[0] for e in got.promotions})
+    assert steps > 0 and launched == steps and not plain
+    _assert_duel_bitwise(got, want)
+
+
 # ------------------------------------- the Che hit-rate plane on the card
 def _che_case(n=2000):
     """A 2,000-object catalog rescaled by the reference bench's rule

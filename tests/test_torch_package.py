@@ -65,7 +65,7 @@ def test_import_loads_no_jax_and_no_reference(modules):
 
 EXAMPLES = ["quickstart_torch", "netduel_online_torch",
             "serve_simcache_torch", "streaming_serve_torch",
-            "train_lm_torch"]
+            "train_lm_torch", "amazon_trace_torch"]
 
 _EXAMPLE_PROBE = """
 import importlib.util
